@@ -1,0 +1,48 @@
+"""u8 mean pyramid with the reference's integer semantics.
+
+The port of ``visual_odometry_rs_tpu/ops/pyramid.py``: each level is the
+truncating integer mean ``(a+b+c+d)/4`` of the 2x2 blocks of the level
+below (multires.rs:21-31); an odd last row or column is dropped.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+
+def block_2x2(mat: torch.Tensor):
+    """The 2x2 block corners ``(a, b, c, d)`` of a matrix (multires.rs:79-84):
+    a=(2i,2j) top-left, b=(2i+1,2j) bottom-left, c=(2i,2j+1) top-right,
+    d=(2i+1,2j+1) bottom-right.  Odd trailing rows/cols are dropped."""
+    h2 = mat.shape[-2] // 2
+    w2 = mat.shape[-1] // 2
+    m = mat[..., : 2 * h2, : 2 * w2]
+    return m[..., 0::2, 0::2], m[..., 1::2, 0::2], m[..., 0::2, 1::2], m[..., 1::2, 1::2]
+
+
+def mean_2x2_u8(a, b, c, d) -> torch.Tensor:
+    """Integer mean of 2x2 blocks of u8, truncating like the reference."""
+    s = a.to(torch.int32) + b.to(torch.int32) + c.to(torch.int32) + d.to(torch.int32)
+    return torch.div(s, 4, rounding_mode="trunc").to(torch.uint8)
+
+
+def mean_pyramid(max_levels: int, img: torch.Tensor) -> List[torch.Tensor]:
+    """Up to ``max_levels`` levels, finest first; stops below 2 pixels."""
+    out = [img]
+    while len(out) < max_levels:
+        h, w = out[-1].shape[-2:]
+        if h // 2 == 0 or w // 2 == 0:
+            break
+        out.append(mean_2x2_u8(*block_2x2(out[-1])))
+    return out
+
+
+def level_shapes(height: int, width: int, nb_levels: int):
+    """Static shapes of each pyramid level."""
+    shapes = [(height, width)]
+    for _ in range(1, nb_levels):
+        h, w = shapes[-1]
+        shapes.append((h // 2, w // 2))
+    return shapes
