@@ -147,9 +147,20 @@ def test_tracker_matches_jax_tracker(seq):
     )
     ttrk = ttracker.init_tracker(
         ttracker.TrackerConfig(**KW, bucket_candidates=True),
-        interop.intrinsics_from_numpy(seq.intrinsics), *args,
+        interop.intrinsics_from_numpy(seq.intrinsics), *args, device="cpu",
     )
     ref_t, ref_sw = _run(jtrk, seq, jnp.asarray)
     out_t, out_sw = _run(ttrk, seq, lambda a: a)
     assert out_sw == ref_sw and sum(out_sw) >= 1
     np.testing.assert_allclose(out_t, ref_t, atol=5e-3)
+    assert all(n > 0 for n in ttrk.last_nb_iters) and len(ttrk.last_nb_evals) == LEVELS
+
+
+def test_tracker_defaults_to_the_gpu(seq):
+    """Without ``device="cpu"`` the entry points run on the card, and raise
+    where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    args = (float(seq.timestamps[0]), seq.depths[0], float(seq.timestamps[0]), seq.grays[0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttracker.init_tracker(ttracker.TrackerConfig(**KW), interop.intrinsics_from_numpy(seq.intrinsics), *args)

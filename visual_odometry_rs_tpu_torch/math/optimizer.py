@@ -2,7 +2,10 @@
 
 The port of ``visual_odometry_rs_tpu/math/optimizer.py``.  The reference's
 four hooks (``init / step / eval / stop_criterion``, optimizer.rs:32-71)
-drive a plain Python loop instead of ``lax.while_loop``.
+drive a plain Python loop instead of ``lax.while_loop``.  On a GPU the
+tracker does not run this loop: ``ops.lm_solve`` runs the same control flow
+inside one kernel, and this module is its plain version
+(``models.tracker.solve_level_reference``).
 
 Each iteration makes ONE device→host sync: the finiteness of the step and
 the stopper's ``continue?`` flag are packed into one integer and read with a
@@ -20,9 +23,12 @@ import torch
 
 
 class SolveResult(NamedTuple):
+    """``nb_iter`` and ``failed`` are a Python int and bool from
+    ``iterative_solve``, and 0-d device tensors from the GPU solver."""
+
     state: Any
-    nb_iter: int
-    failed: bool  # a step() produced non-finite model values
+    nb_iter: Any
+    failed: Any  # a step() produced non-finite model values
 
 
 def _leaves(tree):

@@ -6,10 +6,12 @@ candidates over a u8 mean pyramid, per-keyframe warp Jacobians, a per-frame
 coarse-to-fine Levenberg-Marquardt alignment on se(3), and the keyframe
 switch on mean optical flow >= 1 px at the coarsest level.
 
-Each LM evaluation (``_eval_full``) is one call of
-``ops.residual.residual_reduce``: the hand-written CUDA kernel on a GPU, its
-plain torch twin on the CPU.  The LM loop is a Python loop with one host
-sync per iteration (``math.optimizer.iterative_solve``).
+On a GPU the whole LM solve of a level is one launch of the hand-written
+kernel ``ops.lm_solve.lm_solve_level``; a frame is six launches chained
+through one device buffer, and the host reads the device once per frame.
+On the CPU ``solve_level`` is ``solve_level_reference``: the Python LM loop
+(``math.optimizer.iterative_solve``) whose evaluations (``_eval_full``) go
+through ``ops.residual.residual_reduce``.
 
 Candidate arrays keep static per-level capacities with a ``valid`` mask, and
 their order is the JAX package's: 128-pixel chunks visited in bit-reversed
@@ -33,9 +35,10 @@ from ..core.camera import Intrinsics
 from ..core.candidates import coarse_to_fine
 from ..math import pose as pose_mod
 from ..math import se3
-from ..math.optimizer import LMState, damped_solve, iterative_solve, lm_update
+from ..math.optimizer import LMState, SolveResult, damped_solve, iterative_solve, lm_update
 from ..math.pose import Pose
 from ..ops import gradient as gradient_ops
+from ..ops import lm_solve
 from ..ops import pyramid as pyramid_ops
 from ..ops import residual
 from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
@@ -234,18 +237,20 @@ def _eval_energy(obs: LevelObs, image: torch.Tensor, model: Pose):
     return torch.sum(r * r) / torch.sum(inside).to(Float), r, inside
 
 
-def _eval_full(obs: LevelObs, image: torch.Tensor, model: Pose):
+def _eval_full(obs: LevelObs, image: torch.Tensor, model: Pose, out=None):
     """Energy, ``Jᵀr`` and ``Σ JᵀJ`` of one LM evaluation
     (lm_optimizer.rs:68-107).  energy = Σ_inside r² / #inside: NaN when no
-    candidate lands inside, like the reference."""
+    candidate lands inside, like the reference.  ``out`` is passed on to
+    ``residual_reduce``."""
     params = torch.cat([model.q, model.t, obs.intrinsics.vector()])
     m, rsq, count = residual.residual_reduce(
-        image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, params
+        image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, params,
+        out=out,
     )
     return rsq / count, m[:, 6], m[:, :6]
 
 
-def solve_level(
+def solve_level_reference(
     obs: LevelObs,
     image: torch.Tensor,
     model0: Pose,
@@ -253,13 +258,25 @@ def solve_level(
     lm_coef_init: float = 0.1,
     max_iterations: int = 20,
     energy_tol: float = 1.0,
-):
-    """LM solve of one pyramid level (lm_optimizer.rs:111-193): damp the
+) -> SolveResult:
+    """The LM solve of one level as a Python loop: the plain version of
+    ``ops.lm_solve.lm_solve_level`` (lm_optimizer.rs:111-193).  Damp the
     diagonal by (1+λ), solve the 6x6 system by Cholesky, update
-    ``model ∘ exp(δ)⁻¹`` and renormalize the quaternion to first order."""
+    ``model ∘ exp(δ)⁻¹`` and renormalize the quaternion to first order.
+    The host reads the device once per iteration.  On CUDA tensors its
+    evaluations launch the ``residual_reduce`` kernel."""
+    # one output row per evaluation: an accepted state keeps views of its row
+    outs = None
+    if image.device.type == "cuda":
+        outs = iter(
+            torch.empty((max_iterations + 4, residual.OUT_SIZE), dtype=Float, device=image.device)
+        )
+
+    def evaluate(model):
+        return _eval_full(obs, image, model, out=None if outs is None else next(outs))
 
     def init(_, model):
-        energy, grad, hess = _eval_full(obs, image, model)
+        energy, grad, hess = evaluate(model)
         lm_coef = torch.full((), lm_coef_init, dtype=Float, device=image.device)
         return LMState(model, energy, grad, hess, lm_coef)
 
@@ -269,7 +286,7 @@ def solve_level(
         return pose_mod.renormalize_first_order(new_model)
 
     def eval_fn(_, state, new_model):
-        return (new_model, *_eval_full(obs, image, new_model))
+        return (new_model, *evaluate(new_model))
 
     def stop(state, nb_iter, eval_out):
         new_model, energy, grad, hess = eval_out
@@ -281,6 +298,49 @@ def solve_level(
     return iterative_solve(
         None, model0, init=init, step=step, eval_fn=eval_fn, stop_criterion=stop,
         max_iterations=max_iterations + 3,
+    )
+
+
+def _launch_level(obs: LevelObs, image, state_in, record, **kwargs):
+    return lm_solve.lm_solve_level(
+        image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians,
+        obs.intrinsics.vector(), state_in, record, **kwargs,
+    )
+
+
+def _start_state(model: Pose) -> torch.Tensor:
+    """``state_in`` of a frame's first launch: the pose, nothing failed yet."""
+    return torch.cat([model.q, model.t, model.t.new_zeros(1)])
+
+
+def solve_level(
+    obs: LevelObs,
+    image: torch.Tensor,
+    model0: Pose,
+    *,
+    lm_coef_init: float = 0.1,
+    max_iterations: int = 20,
+    energy_tol: float = 1.0,
+) -> SolveResult:
+    """LM solve of one pyramid level (lm_optimizer.rs:111-193).
+
+    CPU tensors take ``solve_level_reference``; CUDA tensors launch the
+    ``lm_solve_level`` kernel once, and ``nb_iter`` and ``failed`` of the
+    result are then 0-d device tensors: nothing is read on the host."""
+    kwargs = dict(lm_coef_init=lm_coef_init, max_iterations=max_iterations, energy_tol=energy_tol)
+    if image.device.type == "cpu":
+        return solve_level_reference(obs, image, model0, **kwargs)
+    record = torch.empty((lm_solve.RECORD_SIZE,), dtype=Float, device=image.device)
+    _launch_level(obs, image, _start_state(model0), record, **kwargs)
+    pose = record[lm_solve.POSE]
+    m = record[lm_solve.NORMAL_EQUATIONS].view(6, 7)
+    state = LMState(
+        Pose(pose[0:4], pose[4:7]), record[lm_solve.ENERGY], m[:, 6], m[:, :6],
+        record[lm_solve.LM_COEF],
+    )
+    return SolveResult(
+        state=state, nb_iter=record[lm_solve.NB_ITER].to(torch.int32),
+        failed=record[lm_solve.FAILED] != 0,
     )
 
 
@@ -307,9 +367,54 @@ def warm_start_init(
 
 class TrackResult(NamedTuple):
     model: Pose  # keyframe → current-frame motion estimate
-    failed: bool  # some level's Cholesky failed
+    failed: torch.Tensor  # 0-d bool: some level's Cholesky failed
     flow: torch.Tensor  # 0-d: mean abs optical flow at the coarsest level (px)
-    nb_iters: Tuple[int, ...]  # LM iterations per level, 0 = finest
+    nb_iters: torch.Tensor  # (nb_levels,) int32: LM iterations per level, 0 = finest
+    nb_evals: torch.Tensor  # (nb_levels,) int32: LM evaluations per level
+
+
+def _level_kwargs(config: TrackerConfig, lvl: int) -> dict:
+    return dict(
+        lm_coef_init=config.lm_coef_init,
+        max_iterations=config.level_iterations(lvl),
+        energy_tol=config.energy_tol,
+    )
+
+
+def _mean_flow(model: Pose, coarse: LevelObs) -> torch.Tensor:
+    """Optical-flow keyframe criterion at the coarsest level
+    (inverse_compositional.rs:211-222): mean |Δu| + |Δv| over the candidates.
+    Padding candidates warp to NaN and make the mean NaN, which never
+    triggers a switch, as in the JAX package."""
+    u, v = camera_mod.warp(model, coarse.xs, coarse.ys, coarse.idepth, coarse.intrinsics)
+    dflow = torch.abs(coarse.xs - u) + torch.abs(coarse.ys - v)
+    validf = coarse.valid.to(Float)
+    return torch.sum(dflow * validf) / torch.sum(validf)
+
+
+def _track_frame_kernel(config, kf, img_pyramid, init_model) -> TrackResult:
+    """Coarse-to-fine ``lm_solve_level``: one launch per level, each reading
+    its start pose and the failed-so-far flag from the record of the level
+    before; the finest level's launch also computes the flow.  No host read."""
+    records = torch.empty(
+        (config.nb_levels, lm_solve.RECORD_SIZE), dtype=Float, device=init_model.q.device
+    )
+    coarse = kf.levels[-1]
+    state = _start_state(init_model)
+    for lvl in reversed(range(config.nb_levels)):
+        flow_of = None
+        if lvl == 0:  # the last launch: its handed-on pose is the frame's
+            flow_of = (coarse.xs, coarse.ys, coarse.idepth, coarse.valid, coarse.intrinsics.vector())
+        _launch_level(
+            kf.levels[lvl], img_pyramid[lvl], state, records[lvl],
+            flow_of=flow_of, **_level_kwargs(config, lvl),
+        )
+        state = records[lvl, : lm_solve.STATE_SIZE]
+    counts = records[:, lm_solve.NB_ITER : lm_solve.NB_EVALS + 1].to(torch.int32)
+    return TrackResult(
+        model=Pose(state[0:4], state[4:7]), failed=state[lm_solve.FAILED_SO_FAR] != 0,
+        flow=records[0, lm_solve.FLOW], nb_iters=counts[:, 0], nb_evals=counts[:, 1],
+    )
 
 
 def track_frame(
@@ -321,31 +426,42 @@ def track_frame(
     """Coarse-to-fine LM alignment of one frame against the keyframe
     (inverse_compositional.rs:170-240).  After a failed level the model is
     frozen for the rest of the frame; the remaining levels still run, as in
-    the JAX package, so their iteration counts are reported."""
+    the JAX package, so their iteration counts are reported.
+
+    CUDA tensors go through the ``lm_solve_level`` kernel (one launch per
+    level, no host read); CPU tensors through ``track_frame_reference``."""
+    if init_model.q.device.type == "cpu":
+        return track_frame_reference(config, kf, img_pyramid, init_model)
+    return _track_frame_kernel(config, kf, img_pyramid, init_model)
+
+
+def track_frame_reference(
+    config: TrackerConfig,
+    kf: KeyframeData,
+    img_pyramid: List[torch.Tensor],
+    init_model: Pose,
+) -> TrackResult:
+    """``track_frame`` through ``solve_level_reference``, chained on the
+    host, on any device: the plain version that the kernel path is held
+    against."""
     model = init_model
     failed = False
     nb_iters = [0] * config.nb_levels
     for lvl in reversed(range(config.nb_levels)):
-        result = solve_level(
-            kf.levels[lvl], img_pyramid[lvl], model,
-            lm_coef_init=config.lm_coef_init,
-            max_iterations=config.level_iterations(lvl),
-            energy_tol=config.energy_tol,
+        result = solve_level_reference(
+            kf.levels[lvl], img_pyramid[lvl], model, **_level_kwargs(config, lvl)
         )
         if not (failed or result.failed):
             model = result.state.model
         failed = failed or result.failed
         nb_iters[lvl] = result.nb_iter
-
-    # optical-flow keyframe criterion at the coarsest level
-    # (inverse_compositional.rs:211-222); padding candidates warp to NaN and
-    # make the mean NaN, which never triggers a switch, as in the JAX package
-    coarse = kf.levels[-1]
-    u, v = camera_mod.warp(model, coarse.xs, coarse.ys, coarse.idepth, coarse.intrinsics)
-    dflow = torch.abs(coarse.xs - u) + torch.abs(coarse.ys - v)
-    validf = coarse.valid.to(Float)
-    flow = torch.sum(dflow * validf) / torch.sum(validf)
-    return TrackResult(model=model, failed=failed, flow=flow, nb_iters=tuple(nb_iters))
+    device = init_model.q.device
+    nb_iters = torch.tensor(nb_iters, dtype=torch.int32, device=device)
+    return TrackResult(
+        model=model, failed=torch.tensor(failed, device=device),
+        flow=_mean_flow(model, kf.levels[-1]), nb_iters=nb_iters,
+        nb_evals=nb_iters + 1,  # the loop evaluates once at the start and once per iteration
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -358,9 +474,16 @@ class Tracker:
     ``Tracker::track`` → ``Tracker::current_frame``, vors_track.rs:34-63).
 
     Images and depth maps come as numpy arrays or tensors; they are moved to
-    ``device`` here.  Per frame the host reads the step flags of each LM
-    iteration and the optical flow once.
+    ``device`` here, which is the GPU unless the caller names another.  The
+    tracker's own three poses (keyframe, current, previous) are 7 floats each
+    and live on the host, where composing them costs microseconds.  On a GPU
+    the host reads the device once per frame (the solved pose, flow, failed
+    flag and per-level counts in one transfer), and once more on a keyframe
+    switch with bucketing on.
     """
+
+    # the frame solver; a subclass may put ``track_frame_reference`` here
+    _track_frame = staticmethod(track_frame)
 
     def __init__(
         self,
@@ -370,23 +493,25 @@ class Tracker:
         depth_map,
         img_timestamp: float,
         img,
-        device="cpu",
+        device="cuda",
     ):
         self.config = config
         self.device = resolve_device(device)
         self.intrinsics = intrinsics.to(self.device)
         pyr = pyramid_ops.mean_pyramid(config.nb_levels, image_tensor(img, self.device))
         self.keyframe_data = self._precompute(depth_map, pyr)
-        self.keyframe_pose = pose_mod.identity(device=self.device)
+        self.keyframe_pose = pose_mod.identity()
         self.keyframe_depth_timestamp = depth_timestamp
         self.keyframe_img_timestamp = img_timestamp
-        self.current_pose = pose_mod.identity(device=self.device)
+        self.current_pose = pose_mod.identity()
         # previous frame's pose, for the constant-velocity warm start
         self.prev_pose = self.current_pose
         self.current_depth_timestamp = depth_timestamp
         self.current_img_timestamp = img_timestamp
         self.last_flow: float = 0.0
         self.last_failed: bool = False
+        self.last_nb_iters: Tuple[int, ...] = (0,) * config.nb_levels
+        self.last_nb_evals: Tuple[int, ...] = (0,) * config.nb_levels
         self.keyframe_switches: int = 0
 
     def _precompute(self, depth_map, pyr) -> KeyframeData:
@@ -400,20 +525,28 @@ class Tracker:
         pyr = pyramid_ops.mean_pyramid(self.config.nb_levels, image_tensor(img, self.device))
         init_model = warm_start_init(
             self.config, self.keyframe_pose, self.current_pose, self.prev_pose
-        )
-        result = track_frame(self.config, self.keyframe_data, pyr, init_model)
+        ).to(self.device)
+        result = self._track_frame(self.config, self.keyframe_data, pyr, init_model)
+        # the frame's one device→host read
+        stats = torch.cat(
+            [torch.stack([result.flow, result.failed.to(Float)]),
+             result.nb_iters.to(Float), result.nb_evals.to(Float), result.model.q, result.model.t]
+        ).cpu()
+        levels = self.config.nb_levels
+        values = stats.tolist()
+        self.last_flow = values[0]
+        self.last_failed = values[1] != 0.0
+        self.last_nb_iters = tuple(int(n) for n in values[2 : 2 + levels])
+        self.last_nb_evals = tuple(int(n) for n in values[2 + levels : 2 + 2 * levels])
+        model = Pose(stats[-7:-3], stats[-3:])
 
         self.current_depth_timestamp = depth_timestamp
         self.current_img_timestamp = img_timestamp
         self.prev_pose = self.current_pose
-        self.last_failed = result.failed
         # a failed frame keeps the pose, which also zeroes the velocity of the
         # next warm start
-        if not result.failed:
-            self.current_pose = pose_mod.compose(
-                self.keyframe_pose, pose_mod.inverse(result.model)
-            )
-        self.last_flow = float(result.flow)
+        if not self.last_failed:
+            self.current_pose = pose_mod.compose(self.keyframe_pose, pose_mod.inverse(model))
 
         if self.last_flow >= self.config.flow_threshold:
             self.keyframe_data = self._precompute(depth_map, pyr)
@@ -455,7 +588,8 @@ def init_tracker(
     depth_map,
     img_timestamp: float,
     img,
-    device="cpu",
+    device="cuda",
 ) -> Tracker:
-    """The analog of ``Config::init`` (inverse_compositional.rs:74-100)."""
+    """The analog of ``Config::init`` (inverse_compositional.rs:74-100).
+    Runs on the GPU, and raises without one, unless ``device`` says "cpu"."""
     return Tracker(config, intrinsics, depth_timestamp, depth_map, img_timestamp, img, device)

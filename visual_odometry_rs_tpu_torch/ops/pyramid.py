@@ -22,9 +22,15 @@ def block_2x2(mat: torch.Tensor):
     return m[..., 0::2, 0::2], m[..., 1::2, 0::2], m[..., 0::2, 1::2], m[..., 1::2, 1::2]
 
 
-def mean_2x2_u8(a, b, c, d) -> torch.Tensor:
-    """Integer mean of 2x2 blocks of u8, truncating like the reference."""
-    s = a.to(torch.int32) + b.to(torch.int32) + c.to(torch.int32) + d.to(torch.int32)
+def halve_u8(mat: torch.Tensor) -> torch.Tensor:
+    """Integer mean of the 2x2 blocks of a u8 matrix, truncating like the
+    reference (multires.rs:21-31); an odd last row or column is dropped.
+    The four corners are summed as one reduction over a (h/2, 2, w/2, 2)
+    view, so a level costs four tensor operations (kernel launches on a GPU)."""
+    h2 = mat.shape[-2] // 2
+    w2 = mat.shape[-1] // 2
+    blocks = mat[..., : 2 * h2, : 2 * w2].reshape(*mat.shape[:-2], h2, 2, w2, 2)
+    s = blocks.to(torch.int32).sum(dim=(-3, -1), dtype=torch.int32)
     return torch.div(s, 4, rounding_mode="trunc").to(torch.uint8)
 
 
@@ -35,7 +41,7 @@ def mean_pyramid(max_levels: int, img: torch.Tensor) -> List[torch.Tensor]:
         h, w = out[-1].shape[-2:]
         if h // 2 == 0 or w // 2 == 0:
             break
-        out.append(mean_2x2_u8(*block_2x2(out[-1])))
+        out.append(halve_u8(out[-1]))
     return out
 
 

@@ -7,9 +7,11 @@ forms residuals and reduces the masked normal equations, returning
 ``(m (6,7) = [H | g], sum r^2, inside count)``.
 
 - On CUDA tensors it launches the hand-written kernel
-  ``csrc/residual_reduce.cu`` (sm_90a), built with ``nvcc`` at first use into
-  ``_build/`` (keyed on a hash of the source and flags) and bound with
-  ctypes.  There is no fallback: a CUDA tensor launches the kernel or raises.
+  ``csrc/residual_reduce.cu`` (sm_90a; one launch, a thread block cluster
+  sums across its blocks), built by ``ops.build`` at first use and bound
+  with ctypes.  There is no fallback: a CUDA tensor launches the kernel or
+  raises.  Its device functions (``csrc/residual_eval.cuh``) are the ones
+  the per-level LM solver ``ops.lm_solve`` runs.
 - On CPU tensors it runs ``residual_reduce_reference``, the same function in
   plain torch (``camera.warp``, ``interp.bilinear``, a masked product).
 
@@ -19,32 +21,21 @@ on the tensors' device, so a launch never reads the pose on the host.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
 from ..core import camera
 from ..math.pose import Pose
 from ..utils.types import Float
-from . import interp
+from . import build, interp
 
-_PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PACKAGE_DIR / "csrc" / "residual_reduce.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_N_SUMS = 29
-_N_OUT = 44
+OUT_SIZE = 44  # [H | g] (6, 7), sum r^2, inside count
+_THREADS = 256  # threads of a block (csrc/residual_eval.cuh)
+_CACHED = 4  # candidates a thread keeps in registers
+_MAX_CLUSTER = 8
 
 
 def residuals(image, xs, ys, idepth, tmpl_vals, valid, model: Pose, k: camera.Intrinsics):
@@ -67,100 +58,89 @@ def residual_reduce_reference(image, xs, ys, idepth, tmpl_vals, valid, jacobians
     return jm.T @ rhs, torch.sum(r * r), torch.sum(maskf)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernel")
+def cluster_size(n: int) -> int:
+    """Blocks in the cluster that works on ``n`` candidates: the smallest of
+    1, 2, 4, 8 whose threads keep all candidates in registers, else 8."""
+    size = 1
+    while size < _MAX_CLUSTER and size * _THREADS * _CACHED < n:
+        size *= 2
+    return size
 
 
-def build_library() -> tuple[Path, float, str]:
-    """Build the kernel library if it is not built yet.
-
-    Returns ``(path, build seconds, compiler output)``; seconds is 0 and the
-    output empty when the library for this source and these flags exists.
-    """
-    source = SOURCE.read_bytes()
-    key = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"residual_reduce_{key}.so"
-    if lib_path.exists():
-        return lib_path, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    start = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib_path, time.perf_counter() - start, proc.stdout + proc.stderr
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()[0]))
-    lib.vors_residual_num_blocks.argtypes = [ctypes.c_int]
-    lib.vors_residual_num_blocks.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vors_residual_reduce.argtypes = [p, i, i, p, p, p, p, p, p, i, p, p, p, p]
-    lib.vors_residual_reduce.restype = ctypes.c_int
-    return lib
-
-
-def _check(name, t, device, dtype, shape):
+def check_tensor(name, t, device, dtype, shape) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def residual_reduce(image, xs, ys, idepth, tmpl_vals, valid, jacobians, params):
+def level_pointers(image, xs, ys, idepth, tmpl_vals, valid, jacobians):
+    """Checks the tensors of one level (all on ``image``'s CUDA device) and
+    returns the kernels' leading arguments: the image pointer, height, width,
+    the six candidate pointers and the candidate count."""
+    device = image.device
+    if device.type != "cuda":
+        raise ValueError(f"the kernel needs CUDA tensors, got {device}")
+    if image.dim() != 2:
+        raise ValueError(f"image must be (H, W), got {tuple(image.shape)}")
+    n = xs.shape[0]
+    check_tensor("image", image, device, torch.uint8, image.shape)
+    for name, t in (("xs", xs), ("ys", ys), ("idepth", idepth), ("tmpl_vals", tmpl_vals)):
+        check_tensor(name, t, device, Float, (n,))
+    check_tensor("valid", valid, device, torch.bool, (n,))
+    check_tensor("jacobians", jacobians, device, Float, (n, 6))
+    height, width = image.shape
+    return (
+        image.data_ptr(), height, width, xs.data_ptr(), ys.data_ptr(), idepth.data_ptr(),
+        tmpl_vals.data_ptr(), valid.data_ptr(), jacobians.data_ptr(), n,
+    )
+
+
+def on_device(device):
+    """Context in which a launch goes to ``device``: entered only when it is
+    not the current device already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = build.load("residual_reduce")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vors_residual_reduce.argtypes = [p, i, i, p, p, p, p, p, p, i, p, p, i, p]
+    lib.vors_residual_reduce.restype = ctypes.c_int
+    return lib
+
+
+def residual_reduce(image, xs, ys, idepth, tmpl_vals, valid, jacobians, params, out=None):
     """One LM evaluation: ``(m (6,7) = [H | g], sum r^2, inside count)``.
 
-    CPU tensors take the plain twin; CUDA tensors launch the kernel.
-    ``residual_reduce.launches`` counts kernel launches.
+    CPU tensors take the plain twin; CUDA tensors launch the kernel, once.
+    ``out`` is an optional (44,) f32 tensor on the device that receives the
+    result (the returned tensors are views of it), so that a caller in a loop
+    allocates nothing per call.  ``residual_reduce.launches`` counts kernel
+    launches.
     """
     device = image.device
     if device.type == "cpu":
         return residual_reduce_reference(image, xs, ys, idepth, tmpl_vals, valid, jacobians, params)
-    if device.type != "cuda":
-        raise ValueError(f"residual_reduce: unsupported device {device}")
-    n = xs.shape[0]
-    if image.dim() != 2:
-        raise ValueError(f"image must be (H, W), got {tuple(image.shape)}")
-    _check("image", image, device, torch.uint8, tuple(image.shape))
-    for name, t in (("xs", xs), ("ys", ys), ("idepth", idepth), ("tmpl_vals", tmpl_vals)):
-        _check(name, t, device, Float, (n,))
-    _check("valid", valid, device, torch.bool, (n,))
-    _check("jacobians", jacobians, device, Float, (n, 6))
-    _check("params", params, device, Float, (12,))
-
+    level = level_pointers(image, xs, ys, idepth, tmpl_vals, valid, jacobians)
+    check_tensor("params", params, device, Float, (12,))
+    if out is None:
+        out = torch.empty((OUT_SIZE,), dtype=Float, device=device)
+    else:
+        check_tensor("out", out, device, Float, (OUT_SIZE,))
     lib = _library()
-    num_blocks = lib.vors_residual_num_blocks(n)
-    partials = torch.empty((max(1, num_blocks), _N_SUMS), dtype=Float, device=device)
-    out = torch.empty((_N_OUT,), dtype=Float, device=device)
-    height, width = image.shape
-    with torch.cuda.device(device):
+    with on_device(device):
         err = lib.vors_residual_reduce(
-            image.data_ptr(), height, width, xs.data_ptr(), ys.data_ptr(),
-            idepth.data_ptr(), tmpl_vals.data_ptr(), valid.data_ptr(),
-            jacobians.data_ptr(), n, params.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            *level, params.data_ptr(), out.data_ptr(), cluster_size(level[-1]),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"residual_reduce kernel launch failed: CUDA error {err}")
