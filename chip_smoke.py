@@ -31,6 +31,20 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    kernel launches and the device→host copies per frame.
 5. Track the first frames again on the CPU (the plain versions) and compare
    poses.
+6. The batched tracker (``parallel.batch``, the ``vors_batch`` path) at the
+   width of ``bench.py``'s ``fps_scan_b32_diverse`` row: 32 diverse lanes at
+   640x480, 6 levels, cap 4096, 10 tracked frames in clips of 8, at cadence
+   1 and 4.  Every frame must make exactly 6 ``lm_solve_level`` launches for
+   the whole batch; the host may read the device only on check frames and
+   once per clip (profiler counts; a steady frame runs under CUDA's sync
+   debug mode); cadence 1 must be bit-equal per lane to the streaming
+   ``Tracker`` on the card; at cadence 4 switches only on frames with
+   ``(t + 1) % 4 == 0``; no lane may fail.  The lane-axis launch is held
+   against ``track_frame_reference`` lane by lane on 2 lanes x 3 frames.
+   Prints the card's frames per second at both cadences beside the
+   streaming tracker's, the launches, host reads and busy share of a steady
+   and a check frame, batched against single-lane precomputes, and the
+   device time of one lane-axis solve per level against its bound.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
@@ -72,6 +86,12 @@ PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 FLOPS_WARP, FLOPS_INSIDE = 47, 71
 CANDIDATE_BYTES = 4 * 4 + 1 + 6 * 4  # xs, ys, idepth, tmpl; valid; a Jacobian row
 FIELDS = ("xs", "ys", "idepth", "valid", "tmpl_vals", "jacobians")
+# phase 6: bench.py's fps_scan_b32_diverse lanes (bench.py:110-145)
+LANES, LANE_FRAMES, LANE_CAP, LANE_CHUNK = 32, 10, 4096, 8
+LANE_CADENCES = (1, 4)
+LANE_TIMED_RUNS = 3  # timed runs of each cadence, in turns
+PRECOMPUTE_LANES = (1, 4, 32)
+PLAIN_LANES, PLAIN_FRAMES = 2, 3  # the lane-axis launch against the per-lane loop
 
 
 def _card_line() -> str:
@@ -143,9 +163,13 @@ def _bound(n, image_shape, inside, evaluations, out_floats):
     """Least time the card could take: ``(ms, "bytes" | "operations")``.
     Every input read once (candidates, the u8 image, 12 or 13 parameters),
     the output written once; the operations of ``evaluations`` evaluations
-    with ``inside`` candidates in the domain."""
-    nbytes = n * CANDIDATE_BYTES + image_shape[0] * image_shape[1] + 4 * 13 + 4 * out_floats
-    flops = evaluations * (n * FLOPS_WARP + inside * FLOPS_INSIDE)
+    with ``inside`` candidates in the domain.  For a launch of several lanes
+    ``inside`` and ``evaluations`` are lists, one entry a lane."""
+    import numpy as np
+
+    inside, evaluations = np.atleast_1d(inside), np.atleast_1d(evaluations)
+    nbytes = len(inside) * (n * CANDIDATE_BYTES + image_shape[0] * image_shape[1] + 4 * 13 + 4 * out_floats)
+    flops = float(np.sum(evaluations * (n * FLOPS_WARP + inside * FLOPS_INSIDE)))
     by_bytes, by_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -423,6 +447,295 @@ def _frame_times(label, seconds):
           f"fps {1e3 / statistics.mean(steady):.1f}")
 
 
+def _diverse_lanes():
+    """``bench.py``'s diverse lanes (bench.py:130-145): a magnitude ladder of
+    0.004-0.04 m per frame, a direction and a rotation of 0.002 rad scale
+    from ``default_rng(42)``, texture seed 100 + lane, the fr1 intrinsics.
+    Returns the intrinsics and (F + 1, B, H, W) depths and grays."""
+    import numpy as np
+
+    from visual_odometry_rs_tpu_torch.dataset import synthetic
+
+    rng = np.random.default_rng(42)
+    seqs = []
+    for lane in range(LANES):
+        mag = 0.004 + 0.036 * lane / (LANES - 1)
+        direction = rng.normal(size=3)
+        direction = mag * direction / np.linalg.norm(direction)
+        rot = 0.002 * rng.normal(size=3)
+        seqs.append(synthetic.generate_sequence(
+            nb_frames=LANE_FRAMES + 1, height=HEIGHT, width=WIDTH, seed=100 + lane,
+            twist_per_frame=np.concatenate([direction, rot]),
+        ))
+    return (seqs[0].intrinsics, np.stack([s.depths for s in seqs], axis=1),
+            np.stack([s.grays for s in seqs], axis=1))
+
+
+def _check_frames(cadence):
+    """Frames of a run on which the host reads the switch mask."""
+    return sum((t + 1) % cadence == 0 for t in range(LANE_FRAMES))
+
+
+def _batched_run(config, intrinsics, state, depths, grays, cadence):
+    """Tracks frames 1..F of every lane through ``batched_track_sequence``
+    in clips of ``LANE_CHUNK`` frames, carrying the pending mask, the global
+    frame index and the warm start; each clip's poses and diagnostics come
+    back in one read.  Returns (q, t, diagnostics as numpy (F, B, …),
+    seconds)."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.parallel import batch
+
+    pending = prev = None
+    parts = []
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for f0 in range(0, LANE_FRAMES, LANE_CHUNK):
+        f1 = min(f0 + LANE_CHUNK, LANE_FRAMES)
+        state, (poses, diags), pending, prev = batch.batched_track_sequence(
+            config, intrinsics, state, depths[1 + f0:1 + f1], grays[1 + f0:1 + f1],
+            switch_cadence=cadence, pending0=pending, frame_offset=f0, return_pending=True,
+            prev_pose0=prev, return_prev=True,
+        )
+        parts.append(batch.outputs_to_numpy(poses, diags))  # the clip's one read
+    seconds = time.perf_counter() - start
+    diags = batch.StepDiagnostics(*(np.concatenate(x) for x in zip(*(p[2] for p in parts))))
+    return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts]), diags, seconds
+
+
+def _lane_obs(obs, b):
+    return obs._replace(**{f: getattr(obs, f)[b] for f in FIELDS})
+
+
+def phase_lanes_vs_plain(config, intrinsics, depths, grays):
+    """The lane-axis launch (``track_frame`` on a lane axis) against
+    ``track_frame_reference`` lane by lane, on the first lanes and frames;
+    returns the largest pose difference."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import pyramid
+    from visual_odometry_rs_tpu_torch.parallel import batch
+
+    dev = depths.device
+    state = batch.batched_init_state(config, intrinsics, depths[0, :PLAIN_LANES], grays[0, :PLAIN_LANES], device=dev)
+    one = pose_mod.identity(dev)
+    start = pose_mod.Pose(one.q.expand(PLAIN_LANES, 4).contiguous(), one.t.expand(PLAIN_LANES, 3).contiguous())
+    max_err = 0.0
+    for f in range(1, PLAIN_FRAMES + 1):
+        pyr = pyramid.mean_pyramid(LEVELS, grays[f, :PLAIN_LANES])
+        out = tracker_mod.track_frame(config, state.kf, pyr, start)
+        ref = tracker_mod.track_frame_reference(config, state.kf, pyr, start)
+        torch.cuda.synchronize()
+        dt = float((out.model.t - ref.model.t).abs().max())
+        dq = float((out.model.q - ref.model.q).abs().max())
+        flow, flow_ref = out.flow.tolist(), ref.flow.tolist()
+        iters, ref_iters = out.nb_iters.tolist(), ref.nb_iters.tolist()
+        if (out.failed.tolist() != ref.failed.tolist() or any(out.failed.tolist()) or dt > SOLVE_T_ATOL
+                or dq > SOLVE_Q_ATOL or any(abs(a - b) > FLOW_RTOL * abs(b) for a, b in zip(flow, flow_ref))
+                or any(abs(a - b) > SOLVE_ITER_SLACK for x, y in zip(iters, ref_iters) for a, b in zip(x, y))):
+            raise AssertionError(f"lane axis vs per-lane loop, frame {f}: |dt| {dt} |dq| {dq} flow {flow} vs "
+                                 f"{flow_ref} nb_iters {iters} vs {ref_iters}")
+        max_err = max(max_err, dt, dq)
+        print(f"lane-axis launch vs per-lane loop, {PLAIN_LANES} lanes, frame {f} from identity: nb_iters "
+              f"{iters}/{ref_iters} |dt| {dt:.3e} |dq| {dq:.3e} flow {flow}/{flow_ref} ok")
+    return max_err
+
+
+def _streaming(config, intrinsics, depths, grays):
+    """Every lane through the streaming ``Tracker`` on the card, one after
+    the other: (q (F, B, 4), t (F, B, 3), switched (F, B), seconds)."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+
+    q = np.zeros((LANE_FRAMES, LANES, 4), np.float32)
+    t = np.zeros((LANE_FRAMES, LANES, 3), np.float32)
+    switched = np.zeros((LANE_FRAMES, LANES), bool)
+    seconds = 0.0
+    for b in range(LANES):
+        trk = tracker_mod.init_tracker(config, intrinsics, 0.0, depths[0, b], 0.0, grays[0, b], device=depths.device)
+        for f in range(LANE_FRAMES):
+            switches = trk.keyframe_switches
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            trk.track(float(f + 1), depths[f + 1, b], float(f + 1), grays[f + 1, b])
+            seconds += time.perf_counter() - start  # the track's own read waits for the device
+            if trk.last_failed:
+                raise AssertionError(f"streaming lane {b} frame {f + 1} failed")
+            pose = trk.current_frame()[1]
+            q[f, b], t[f, b] = pose.q.numpy(), pose.t.numpy()
+            switched[f, b] = trk.keyframe_switches > switches
+    return q, t, switched, seconds
+
+
+def _profiled(fn, expected_solves):
+    """``fn`` under the profiler, made again if the tracer lost solver
+    launches; returns (profile, fn's result)."""
+    from visual_odometry_rs_tpu_torch.utils import profiling
+
+    for _ in range(PROFILER_ATTEMPTS):
+        box = []
+        prof = profiling.profile_device(lambda: box.append(fn()))
+        solves = sum(n for name, n in prof.kernel_calls.items() if "lm_solve_level_kernel" in name)
+        if solves == expected_solves:
+            return prof, box[0]
+    raise AssertionError(f"profiler: {PROFILER_ATTEMPTS} runs did not record {expected_solves} solver launches")
+
+
+def phase_batched(card, intrinsics, depths_np, grays_np, dev):
+    """Phase 6; returns the kernel row of the lane-axis solver."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, pyramid, residual
+    from visual_odometry_rs_tpu_torch.parallel import batch
+
+    config = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=LANE_CAP)
+    intrinsics = intrinsics.to(dev)
+    depths = torch.from_numpy(depths_np.astype(np.int32)).to(dev)  # uploads are set-up, not timed
+    grays = torch.from_numpy(grays_np).to(dev)
+    for lvl, n in enumerate(config.level_caps()):
+        cluster = residual.cluster_size(n)
+        print(f"level {lvl} N={n}: clusters of {cluster} blocks, {lm_solve.max_active_clusters(cluster)} "
+              f"resident at once (cudaOccupancyMaxActiveClusters) for {LANES} lanes")
+    plain_err = phase_lanes_vs_plain(config, intrinsics, depths, grays)
+    state0 = batch.batched_init_state(config, intrinsics, depths[0], grays[0], device=dev)
+
+    # the streaming tracker over the same 320 frames (bucketing off, so that
+    # its solves have the batched shapes)
+    s_q, s_t, s_switched, s_seconds = _streaming(config, intrinsics, depths, grays)
+    frames = LANES * LANE_FRAMES
+    print(f"streaming Tracker, {LANES} lanes one after the other, {LANE_FRAMES} frames each: "
+          f"{1e3 * s_seconds:.1f} ms, {frames / s_seconds:.1f} fps; switches {int(s_switched.sum())}")
+
+    # the main path: counts from 0, then cadence 1 and 4 in turns
+    chunks = -(-LANE_FRAMES // LANE_CHUNK)
+    residual.residual_reduce.launches = 0
+    lm_solve.lm_solve_level.launches = 0
+    q1, t1, diags1, _ = _batched_run(config, intrinsics, state0, depths, grays, 1)
+    launches = lm_solve.lm_solve_level.launches
+    if launches != LEVELS * LANE_FRAMES or residual.residual_reduce.launches != 0:
+        raise AssertionError(f"batched cadence 1: {launches} lm_solve_level launches for {LANE_FRAMES} frames, "
+                             f"{residual.residual_reduce.launches} residual_reduce")
+    if not (np.array_equal(q1, s_q) and np.array_equal(t1, s_t) and np.array_equal(diags1.switched, s_switched)):
+        raise AssertionError(f"batched cadence 1 is not bit-equal to the streaming Tracker: max |dt| "
+                             f"{np.abs(t1 - s_t).max()}, switches {diags1.switched.sum()} vs {s_switched.sum()}")
+    print(f"batched cadence 1: {launches} lm_solve_level launches for {LANE_FRAMES} frames of {LANES} lanes; "
+          f"poses and switches bit-equal to the streaming Tracker per lane; switches per frame "
+          f"{diags1.switched.sum(axis=1).tolist()}")
+    runs = {}
+    for cadence in LANE_CADENCES:
+        q, t, diags, _ = _batched_run(config, intrinsics, state0, depths, grays, cadence)
+        if diags.failed.any():
+            raise AssertionError(f"cadence {cadence}: failed lanes {np.argwhere(diags.failed).tolist()}")
+        bad = [f for f in np.nonzero(diags.switched.any(axis=1))[0] if (f + 1) % cadence]
+        if bad or not diags.switched.any():
+            raise AssertionError(f"cadence {cadence}: switches on frames {bad} off the check frames (or none)")
+        runs[cadence] = (q, t, diags, [])
+    for _ in range(LANE_TIMED_RUNS):
+        for cadence in LANE_CADENCES:
+            q, t, _, seconds = _batched_run(config, intrinsics, state0, depths, grays, cadence)
+            if not (np.array_equal(q, runs[cadence][0]) and np.array_equal(t, runs[cadence][1])):
+                raise AssertionError(f"cadence {cadence}: two runs are not bit-equal")
+            runs[cadence][3].append(seconds)
+    fps = {}
+    for cadence in LANE_CADENCES:
+        q, t, diags, seconds = runs[cadence]
+        fps[cadence] = frames / statistics.median(seconds)
+        print(f"batched cadence {cadence}: {LANES} lanes x {LANE_FRAMES} frames in clips of {LANE_CHUNK}: "
+              f"wall {', '.join(f'{1e3 * x:.1f}' for x in seconds)} ms ({LANE_TIMED_RUNS} runs); "
+              f"{fps[cadence]:.1f} fps of the card (median run) against {frames / s_seconds:.1f} streaming; "
+              f"switches per frame {diags.switched.sum(axis=1).tolist()}; failed 0; "
+              f"max |t - streaming t| {np.abs(t - s_t).max():.3e} m")
+
+    # host reads and launches: whole runs, then frame by frame
+    for cadence in LANE_CADENCES:
+        prof, _ = _profiled(lambda c=cadence: _batched_run(config, intrinsics, state0, depths, grays, c),
+                            LEVELS * LANE_FRAMES)
+        reads = _check_frames(cadence) + chunks
+        print(f"profile, cadence {cadence}: {prof.device_to_host_copies} device-to-host copies for "
+              f"{_check_frames(cadence)} check frames and {chunks} clips; {prof.launches} kernel launches; "
+              f"device busy {100 * prof.busy_share:.2f}% of {prof.wall_ms:.1f} ms (profiler on)")
+        if prof.device_to_host_copies != reads:
+            raise AssertionError(f"cadence {cadence}: {prof.device_to_host_copies} host reads, expected {reads}")
+    cadence = LANE_CADENCES[-1]
+    state, pending, prev = state0, None, None
+    for f in range(LANE_FRAMES):
+        check = (f + 1) % cadence == 0
+
+        def frame():
+            return batch.batched_track_sequence(
+                config, intrinsics, state, depths[f + 1:f + 2], grays[f + 1:f + 2], switch_cadence=cadence,
+                pending0=pending, frame_offset=f, return_pending=True, prev_pose0=prev, return_prev=True,
+            )
+
+        def steady_frame():
+            torch.cuda.set_sync_debug_mode("error")  # raises if the frame waits for the device
+            try:
+                return frame()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        prof, (state, _, pending, prev) = _profiled(frame if check else steady_frame, LEVELS)
+        expected = 1 if check else 0  # the check frame's read of the switch mask
+        kind = "check" if check else "steady"
+        print(f"cadence {cadence} frame {f + 1} ({kind}): {prof.launches} kernel launches, "
+              f"{prof.device_to_host_copies} device-to-host copies, device busy {100 * prof.busy_share:.2f}% of "
+              f"{prof.wall_ms:.2f} ms (profiler on)")
+        if prof.device_to_host_copies != expected:
+            raise AssertionError(f"{kind} frame {f + 1}: {prof.device_to_host_copies} host reads, expected {expected}")
+
+    # precompute: k lanes batched against k single-lane precomputes
+    pyr0 = pyramid.mean_pyramid(LEVELS, grays[0])
+    for k in PRECOMPUTE_LANES:
+        batched_ms = _time_ms(lambda: tracker_mod.precompute_keyframe(
+            config, intrinsics, depths[0, :k], [p[:k] for p in pyr0]), reps=5, warmup=1)
+        singles_ms = _time_ms(lambda: [tracker_mod.precompute_keyframe(
+            config, intrinsics, depths[0, b], [p[b] for p in pyr0]) for b in range(k)], reps=3, warmup=1)
+        print(f"keyframe precompute of {k} lanes: batched {batched_ms:.2f} ms, {k} single-lane "
+              f"{singles_ms:.2f} ms (CUDA events around the call, median)")
+
+    # one lane-axis solve per level at B = 32, from identity, frame 1
+    pyr1 = pyramid.mean_pyramid(LEVELS, grays[1])
+    one = pose_mod.identity(dev)
+    identity = pose_mod.Pose(one.q.expand(LANES, 4).contiguous(), one.t.expand(LANES, 3).contiguous())
+    state_in = tracker_mod._start_state(identity)
+    row = None
+    for lvl in reversed(range(LEVELS)):
+        obs, image = state0.kf.levels[lvl], pyr1[lvl]
+        record = torch.empty((LANES, lm_solve.RECORD_SIZE), device=dev)
+
+        def launch():
+            lm_solve.lm_solve_level(
+                image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians,
+                obs.intrinsics.vector(), state_in, record, lm_coef_init=0.1, max_iterations=20, energy_tol=1.0)
+
+        k_ms = _time_ms(launch, reps=20, warmup=3)
+        d_us = _device_us(launch, "lm_solve_level_kernel", reps=20)
+        evals = [int(e) for e in record[:, lm_solve.NB_EVALS].tolist()]
+        insides = [_inside_count(_lane_obs(obs, b), image[b], one) for b in range(LANES)]
+        n = obs.xs.shape[-1]
+        b_ms, b_by = _bound(n, image.shape[-2:], insides, evals, lm_solve.RECORD_SIZE)
+        print(f"lane-axis solve level {lvl}, {LANES} lanes N={n} from identity: {sum(evals)} evaluations "
+              f"(lanes {min(evals)}-{max(evals)}); on the device {d_us:.2f} us (profiler, mean of 20), per call "
+              f"{k_ms:.4f} ms (CUDA events, median of 20); bound {b_ms:.6f} ms by {b_by} "
+              f"({100 * b_ms / (d_us / 1e3):.4f}% of the device time)")
+        if lvl == 0:
+            p_ms = _time_ms(lambda: [tracker_mod.solve_level_reference(_lane_obs(obs, b), image[b], one)
+                                     for b in range(LANES)], reps=1, warmup=0)
+            print(f"  the plain version, the Python LM loop lane by lane: {p_ms:.1f} ms")
+            row = dict(launches=launches, max_abs_err=plain_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"batched fps of the card: cadence 1 {fps[1]:.1f}, cadence 4 {fps[4]:.1f}; streaming "
+          f"{frames / s_seconds:.1f} ({card})")
+    return row
+
+
 def main() -> int:
     try:
         import torch
@@ -539,6 +852,13 @@ def main() -> int:
     if not diff <= POSE_ATOL:
         raise AssertionError(f"CUDA and CPU poses differ by {diff}")
 
+    # phase 6: the batched tracker
+    start = time.perf_counter()
+    lane_intrinsics, lane_depths, lane_grays = _diverse_lanes()
+    print(f"rendered {LANES} lanes x {LANE_FRAMES + 1} frames at {WIDTH}x{HEIGHT} in "
+          f"{time.perf_counter() - start:.1f} s")
+    lane_row = phase_batched(card, lane_intrinsics, lane_depths, lane_grays, dev)
+
     def row(rows):  # level 0 as the tracker buckets it
         return next(r for r in rows if r["level"] == 0 and r["shape"] == "bucket")
 
@@ -554,6 +874,11 @@ def main() -> int:
             "launches": launches, "max_abs_err": max_err, "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
         })
+    kernels.append({
+        "name": f"lm_solve_level (lane axis, {LANES} lanes)", "route": "cuda",
+        "source": "visual_odometry_rs_tpu_torch/csrc/lm_solve.cu", "replaces": replaces, **lane_row,
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,11 +14,12 @@ sys.modules["jax"] = None
 sys.modules["visual_odometry_rs_tpu"] = None
 for name in sys.argv[1:]:
     importlib.import_module(name)
-from visual_odometry_rs_tpu_torch.cli import vors_track
-try:
-    vors_track.main(["--help"])
-except SystemExit as e:
-    assert e.code == 0, e.code
+from visual_odometry_rs_tpu_torch.cli import vors_batch, vors_track
+for cli in (vors_track, vors_batch):
+    try:
+        cli.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
 """
 
 
@@ -33,12 +34,13 @@ def _modules():
 def test_port_imports_and_cli_help_without_jax():
     modules = _modules()
     assert "visual_odometry_rs_tpu_torch.models.tracker" in modules
+    assert "visual_odometry_rs_tpu_torch.parallel.batch" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "associations_file" in proc.stdout
+    assert "associations_file" in proc.stdout and "--switch-cadence" in proc.stdout
 
 
 def test_port_sources_name_no_jax():

@@ -249,3 +249,102 @@ def test_lm_solve_raises_on_bad_inputs(cuda_device):
             obs.intrinsics.vector(), tracker._start_state(pose.identity(device=cuda_device)), record,
             lm_coef_init=0.1, max_iterations=20, energy_tol=1.0, cluster=3,
         )
+
+
+def _three_lanes(device):
+    """Three lanes of keyframe, next-frame pyramid and start pose: a normal
+    lane, a lane with no valid candidate at any level, and a lane whose
+    coarsest level has none (so that level fails)."""
+    lanes = []
+    for seed in range(3):
+        seq = synthetic.generate_sequence(nb_frames=2, height=H, width=W, seed=seed)
+        config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
+        kf = tracker.precompute_keyframe(
+            config, seq.intrinsics.to(device), torch.from_numpy(seq.depths[0].astype(np.int32)).to(device),
+            pyramid.mean_pyramid(LEVELS, torch.from_numpy(seq.grays[0]).to(device)),
+        )
+        levels = list(kf.levels)
+        if seed == 1:
+            levels = [obs._replace(valid=torch.zeros_like(obs.valid)) for obs in levels]
+        elif seed == 2:
+            levels[-1] = levels[-1]._replace(valid=torch.zeros_like(levels[-1].valid))
+        pyr1 = pyramid.mean_pyramid(LEVELS, torch.from_numpy(seq.grays[1]).to(device))
+        lanes.append((tracker.KeyframeData(levels=tuple(levels)), pyr1, se3.exp(torch.tensor(SMALL, device=device))))
+    kf = tracker.map_keyframe(lambda *xs: torch.stack(xs), *(kf for kf, _, _ in lanes))
+    pyr = [torch.stack(ps) for ps in zip(*(p for _, p, _ in lanes))]
+    start = pose.Pose(torch.stack([s.q for _, _, s in lanes]), torch.stack([s.t for _, _, s in lanes]))
+    return config, lanes, kf, pyr, start
+
+
+def test_lane_axis_launch_is_single_launches_bit_for_bit(cuda_device):
+    """A frame of three lanes is six launches, each lane's result bit-equal
+    to its own one-lane frame."""
+    config, lanes, kf, pyr, start = _three_lanes(cuda_device)
+    before = lm_solve.lm_solve_level.launches
+    out = tracker.track_frame(config, kf, pyr, start)
+    assert lm_solve.lm_solve_level.launches - before == LEVELS
+    assert out.model.q.shape == (3, 4) and out.nb_iters.shape == (3, LEVELS)
+    for b, (lane_kf, lane_pyr, lane_start) in enumerate(lanes):
+        one = tracker.track_frame(config, lane_kf, lane_pyr, lane_start)
+        assert torch.equal(out.model.q[b], one.model.q) and torch.equal(out.model.t[b], one.model.t)
+        assert torch.equal(out.failed[b], one.failed)
+        assert torch.equal(out.nb_iters[b], one.nb_iters) and torch.equal(out.nb_evals[b], one.nb_evals)
+        assert torch.equal(out.flow[b], one.flow) or (bool(out.flow[b].isnan()) and bool(one.flow.isnan()))
+    assert out.failed.tolist() == [False, True, True]
+    assert torch.equal(out.model.t[1], start.t[1]) and torch.equal(out.model.t[2], start.t[2])
+    assert out.nb_iters[1].tolist() == [1] * LEVELS and out.nb_iters[2, -1] == 1
+
+
+def test_lane_axis_launch_matches_reference_per_lane(cuda_device):
+    """The lane-axis frame against ``track_frame_reference`` lane by lane
+    (the Python loop), with the solver's tolerances."""
+    config, _, kf, pyr, start = _three_lanes(cuda_device)
+    out = tracker.track_frame(config, kf, pyr, start)
+    ref = tracker.track_frame_reference(config, kf, pyr, start)
+    assert out.failed.tolist() == ref.failed.tolist()
+    np.testing.assert_allclose(out.model.t.cpu().numpy(), ref.model.t.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(out.model.q.cpu().numpy(), ref.model.q.cpu().numpy(), atol=1e-6)
+    assert (out.nb_iters - ref.nb_iters).abs().max() <= 1
+    np.testing.assert_allclose(float(out.flow[0]), float(ref.flow[0]), rtol=1e-4)
+    assert out.flow[1:].isnan().all() and ref.flow[1:].isnan().all()
+
+
+def test_lane_axis_launch_raises_on_mismatched_lanes(cuda_device):
+    config, _, kf, pyr, start = _three_lanes(cuda_device)
+    obs = kf.levels[0]
+    state = tracker._start_state(start)
+    args = (pyr[0], obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, obs.intrinsics.vector())
+    kwargs = dict(lm_coef_init=0.1, max_iterations=20, energy_tol=1.0)
+    with pytest.raises(ValueError):  # a record for two lanes
+        lm_solve.lm_solve_level(*args, state, torch.empty((2, lm_solve.RECORD_SIZE), device=cuda_device), **kwargs)
+    with pytest.raises(ValueError):  # a state whose rows are not contiguous
+        lm_solve.lm_solve_level(*args, state.t().contiguous().t(), torch.empty((3, lm_solve.RECORD_SIZE), device=cuda_device), **kwargs)
+    assert lm_solve.max_active_clusters(residual.cluster_size(obs.xs.shape[-1])) >= 1
+
+
+def test_batched_tracking_is_the_streaming_tracker_on_the_card(cuda_device):
+    """Three lanes, cadence 1, four frames: per lane bit-equal to the
+    streaming ``Tracker`` on the card (bucketing off); one solver launch per
+    level and frame for all lanes."""
+    from visual_odometry_rs_tpu_torch.parallel import batch
+
+    seqs = [synthetic.generate_sequence(nb_frames=5, height=H, width=W, seed=s,
+                                        twist_per_frame=[0.02 * (s + 1), 0.0, 0.0, 0.0, 0.0, 0.0])
+            for s in range(3)]
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
+    intr = seqs[0].intrinsics
+    state = batch.batched_init_state(config, intr, np.stack([s.depths[0] for s in seqs]),
+                                     np.stack([s.grays[0] for s in seqs]), device=cuda_device)
+    clip_d = np.stack([np.stack([s.depths[f] for s in seqs]) for f in range(1, 5)])
+    clip_g = np.stack([np.stack([s.grays[f] for s in seqs]) for f in range(1, 5)])
+    before = lm_solve.lm_solve_level.launches
+    _, (poses, diags) = batch.batched_track_sequence(config, intr, state, clip_d, clip_g)
+    assert lm_solve.lm_solve_level.launches - before == 4 * LEVELS
+    assert diags.switched.any()
+    for b, s in enumerate(seqs):
+        trk = tracker.init_tracker(config, intr, 0.0, s.depths[0], 0.0, s.grays[0], device=cuda_device)
+        for f in range(4):
+            trk.track(float(f + 1), s.depths[f + 1], float(f + 1), s.grays[f + 1])
+            p = trk.current_frame()[1]
+            assert torch.equal(p.q, poses.q[f, b].cpu()) and torch.equal(p.t, poses.t[f, b].cpu()), (f, b)
+            assert list(trk.last_nb_iters) == diags.nb_iters[f, b].tolist()

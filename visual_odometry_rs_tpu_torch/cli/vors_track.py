@@ -14,23 +14,9 @@ from __future__ import annotations
 import argparse
 import sys
 
+from . import _common
+
 USAGE = "Usage: vors_track [fr1|fr2|fr3|icl] associations_file"
-
-
-def _parse_level_iterations(spec, nb_levels: int):
-    """``"N0,N1,..."`` → per-level caps, finest first; None when empty."""
-    if not spec:
-        return None
-    try:
-        caps = tuple(int(tok) for tok in str(spec).split(","))
-    except ValueError:
-        raise SystemExit(f"--level-iterations must be comma-separated integers, got {spec!r}")
-    if len(caps) != nb_levels or any(c < 1 for c in caps):
-        raise SystemExit(
-            f"--level-iterations needs {nb_levels} caps >= 1 (one per "
-            f"pyramid level, finest first), got {spec!r}"
-        )
-    return caps
 
 
 def main(argv=None) -> int:
@@ -89,7 +75,7 @@ def main(argv=None) -> int:
         candidate_cap=args.candidate_cap,
         bucket_candidates=not args.no_bucket,
         warm_start=args.warm_start,
-        level_max_iterations=_parse_level_iterations(args.level_iterations, args.nb_levels),
+        level_max_iterations=_common.parse_level_iterations(args.level_iterations, args.nb_levels),
     )
     trk = tracker_mod.init_tracker(
         config, intrinsics,

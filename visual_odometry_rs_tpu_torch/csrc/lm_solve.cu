@@ -30,6 +30,13 @@
 //   previous level's record, and the rule "after a failed level the pose is
 //   frozen" (inverse_compositional.rs:195-199) is applied here, so a frame
 //   is six launches chained through one buffer.
+// - A lane axis for the batched tracker: the grid is one cluster per lane
+//   (blockIdx.y), and each lane offsets its pointers to its own image,
+//   candidates, state, record and flow candidates.  Lanes share nothing and
+//   never wait on each other: each cluster ends when its own solve ends,
+//   where the JAX package's vmap of a while_loop runs every lane for as
+//   many iterations as the slowest.  One lane is exactly the launch of
+//   one level of one sequence.
 //
 // Control flow, as math/optimizer.py and models/tracker.py::solve_level:
 // evaluate at the start pose with lambda = lm_coef_init; then, counting
@@ -289,11 +296,33 @@ __device__ float mean_flow(const FlowLevel& fl, const Motion& m, ReduceShared& s
   return flow / count;
 }
 
+// Moves the pointers of `lv` and `flow` to lane `lane`: lanes are laid out
+// one after another, (lanes, h, w) images and (lanes, n, ...) candidates.
+__device__ __forceinline__ void to_lane(int lane, Level& lv, FlowLevel& flow) {
+  const size_t n = (size_t)lane * lv.n;
+  lv.img += (size_t)lane * lv.height * lv.width;
+  lv.xs += n;
+  lv.ys += n;
+  lv.idepth += n;
+  lv.tmpl += n;
+  lv.valid += n;
+  lv.jac += 6 * n;
+  const size_t fn = (size_t)lane * flow.n;
+  flow.xs += fn;
+  flow.ys += fn;
+  flow.idepth += fn;
+  flow.valid += fn;
+}
+
 __global__ void __launch_bounds__(kThreads)
 lm_solve_level_kernel(Level lv, const float* __restrict__ intrinsics,
-                      const float* __restrict__ state_in, float lm_coef_init,
+                      const float* __restrict__ state_in, int state_stride, float lm_coef_init,
                       int max_iterations, float energy_tol, FlowLevel flow_level,
                       float* __restrict__ record) {
+  // a lane's state is `state_stride` floats after the previous lane's
+  to_lane(blockIdx.y, lv, flow_level);
+  state_in += (size_t)blockIdx.y * state_stride;
+  record += (size_t)blockIdx.y * kRecord;
   __shared__ ReduceShared sh;
   __shared__ float sh_pose[7];  // the pose to evaluate next
   __shared__ int sh_go;         // 1: evaluate sh_pose, 0: the solve has ended
@@ -392,18 +421,22 @@ extern "C" {
 
 int vors_lm_record_size() { return kRecord; }
 
-// One launch on `stream` as a cluster of `cluster` (1, 2, 4 or 8) blocks:
-// the LM solve of one level from the pose in `state_in` (8 floats: pose,
-// failed-so-far flag) into `record` (72 floats); with flow_n > 0 also the
-// mean optical flow of those candidates.  Returns the CUDA error of the
+// One launch on `stream` as `lanes` clusters of `cluster` (1, 2, 4 or 8)
+// blocks, one cluster per lane: the LM solve of one level of every lane from
+// the pose in its `state_in` (8 floats: pose, failed-so-far flag; lane b's
+// at state_in + b * state_stride) into its `record` (72 floats, lane after
+// lane); with flow_n > 0 also the mean optical flow of the lane's flow
+// candidates.  Images, candidates and flow candidates are laid out lane
+// after lane; the intrinsics are shared.  Returns the CUDA error of the
 // launch (0 = success).
 int vors_lm_solve_level(const void* img, int height, int width, const void* xs, const void* ys,
                         const void* idepth, const void* tmpl, const void* valid,
                         const void* jac, int n, const void* intrinsics, const void* state_in,
-                        float lm_coef_init, int max_iterations, float energy_tol,
-                        const void* flow_xs, const void* flow_ys, const void* flow_idepth,
-                        const void* flow_valid, const void* flow_intrinsics, int flow_n,
-                        void* record, int cluster, void* stream) {
+                        int state_stride, float lm_coef_init, int max_iterations,
+                        float energy_tol, const void* flow_xs, const void* flow_ys,
+                        const void* flow_idepth, const void* flow_valid,
+                        const void* flow_intrinsics, int flow_n, void* record, int cluster,
+                        int lanes, void* stream) {
   const Level lv = {static_cast<const uint8_t*>(img), height, width,
                     static_cast<const float*>(xs), static_cast<const float*>(ys),
                     static_cast<const float*>(idepth), static_cast<const float*>(tmpl),
@@ -413,9 +446,19 @@ int vors_lm_solve_level(const void* img, int height, int width, const void* xs, 
                           static_cast<const uint8_t*>(flow_valid),
                           static_cast<const float*>(flow_intrinsics), flow_n};
   return static_cast<int>(launch_cluster(
-      lm_solve_level_kernel, cluster, static_cast<cudaStream_t>(stream), lv,
-      static_cast<const float*>(intrinsics), static_cast<const float*>(state_in), lm_coef_init,
-      max_iterations, energy_tol, flow, static_cast<float*>(record)));
+      lm_solve_level_kernel, cluster, lanes, static_cast<cudaStream_t>(stream), lv,
+      static_cast<const float*>(intrinsics), static_cast<const float*>(state_in), state_stride,
+      lm_coef_init, max_iterations, energy_tol, flow, static_cast<float*>(record)));
+}
+
+// How many clusters of `cluster` blocks of this kernel the card holds at
+// once (cudaOccupancyMaxActiveClusters), into *count; returns the CUDA error.
+int vors_lm_max_active_clusters(int cluster, int* count) {
+  if (!valid_cluster(cluster)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config = cluster_config(cluster, 1, nullptr, attribute);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(count, lm_solve_level_kernel, &config));
 }
 
 }  // extern "C"

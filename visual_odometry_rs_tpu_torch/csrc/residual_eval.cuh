@@ -226,25 +226,36 @@ __device__ __forceinline__ void cluster_reduce(float (&s)[kSums], ReduceShared& 
   __syncthreads();
 }
 
-// Launches `kernel` as one cluster of `cluster` blocks of kThreads threads.
-template <typename... Params, typename... Args>
-inline cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, cudaStream_t stream,
-                                  Args... args) {
-  if (cluster != 1 && cluster != 2 && cluster != 4 && cluster != kMaxCluster) {
-    return cudaErrorInvalidValue;
-  }
+// The launch of `lanes` clusters of `cluster` blocks of kThreads threads:
+// cluster c is the blocks (0..cluster-1, c) of a (cluster, lanes) grid, so a
+// block's lane is blockIdx.y.  `attribute` must outlive `config`.
+inline cudaLaunchConfig_t cluster_config(int cluster, int lanes, cudaStream_t stream,
+                                         cudaLaunchAttribute& attribute) {
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(cluster);
+  config.gridDim = dim3(cluster, lanes);
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = 0;
   config.stream = stream;
-  cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = cluster;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  config.attrs = attribute;
+  attribute.id = cudaLaunchAttributeClusterDimension;
+  attribute.val.clusterDim.x = cluster;
+  attribute.val.clusterDim.y = 1;
+  attribute.val.clusterDim.z = 1;
+  config.attrs = &attribute;
   config.numAttrs = 1;
+  return config;
+}
+
+inline bool valid_cluster(int cluster) {
+  return cluster == 1 || cluster == 2 || cluster == 4 || cluster == kMaxCluster;
+}
+
+// Launches `kernel` as `lanes` clusters of `cluster` blocks.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, int lanes,
+                                  cudaStream_t stream, Args... args) {
+  if (!valid_cluster(cluster) || lanes < 1 || lanes > 65535) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attribute;
+  const cudaLaunchConfig_t config = cluster_config(cluster, lanes, stream, attribute);
   const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
   const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
   return err != cudaSuccess ? err : last;

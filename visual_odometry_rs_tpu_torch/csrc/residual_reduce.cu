@@ -77,7 +77,7 @@ int vors_residual_reduce(const void* img, int height, int width, const void* xs,
                     static_cast<const float*>(xs), static_cast<const float*>(ys),
                     static_cast<const float*>(idepth), static_cast<const float*>(tmpl),
                     static_cast<const uint8_t*>(valid), static_cast<const float*>(jac), n};
-  return static_cast<int>(launch_cluster(residual_reduce_kernel, cluster,
+  return static_cast<int>(launch_cluster(residual_reduce_kernel, cluster, 1,
                                          static_cast<cudaStream_t>(stream), lv,
                                          static_cast<const float*>(params),
                                          static_cast<float*>(out)));

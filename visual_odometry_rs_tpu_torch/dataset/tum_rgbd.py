@@ -4,16 +4,16 @@ The port of the streaming tracker's part of
 ``visual_odometry_rs_tpu/dataset/tum_rgbd.py`` (reference
 ``src/dataset/tum_rgbd.rs``): depth scale 5000, the intrinsics presets,
 association parsing with ``#`` comments, the TUM trajectory line
-``timestamp tx ty tz qx qy qz qw`` (qw last), and PNG IO through PIL.
-PIL is imported only inside the IO functions; the native loader is not
-ported yet.
+``timestamp tx ty tz qx qy qz qw`` (qw last), PNG IO through PIL and the
+sequential ``frame_loader``.  PIL is imported only inside the IO functions;
+the native prefetching loader is not ported yet.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
@@ -135,6 +135,14 @@ def read_gray(path: str) -> np.ndarray:
 def read_images(assoc: Association) -> Tuple[np.ndarray, np.ndarray]:
     """(depth u16, gray u8) of one association (vors_track.rs:140-145)."""
     return read_png_16bits(assoc.depth_file_path), read_gray(assoc.color_file_path)
+
+
+def frame_loader(assocs: List[Association]) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """In-order (depth u16, gray u8) frames of a sequence, read one by one
+    on the calling thread (the JAX package's ``frame_loader`` without its
+    native prefetch)."""
+    for a in assocs:
+        yield read_images(a)
 
 
 def write_sequence(directory: str, grays: np.ndarray, depths: np.ndarray, timestamps: np.ndarray) -> str:

@@ -1,11 +1,16 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
-The JAX package's ``Intrinsics``, ``Pose``, ``LevelObs`` and
-``KeyframeData`` are NamedTuples whose fields the port's types share by
+The JAX package's ``Intrinsics``, ``Pose``, ``LevelObs``, ``KeyframeData``
+and ``TrackState`` are NamedTuples whose fields the port's types share by
 name.  These functions take any object with those fields whose leaves numpy
 can read (call ``np.asarray`` on the JAX arrays first) and build the port's
 tensors on ``device``, or turn the port's state back into numpy.  No JAX is
 imported here.
+
+A batched JAX ``TrackState`` (``jax.vmap`` of ``init_state``) carries the
+lane axis on every leaf, the intrinsics included; the port's batched state
+shares one set of intrinsics, so ``track_state_from_numpy`` checks that the
+lanes agree and ``track_state_to_numpy`` repeats them per lane.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from .core.camera import Intrinsics
 from .math.pose import Pose
 from .models.tracker import KeyframeData, LevelObs
+from .parallel.batch import TrackState
 from .utils.types import to_numpy
 
 _FLOAT_FIELDS = ("xs", "ys", "idepth", "tmpl_vals", "jacobians")
@@ -61,3 +67,41 @@ def level_to_numpy(obs: LevelObs) -> LevelObs:
 def keyframe_to_numpy(kf: KeyframeData) -> KeyframeData:
     return KeyframeData(levels=tuple(level_to_numpy(obs) for obs in kf.levels))
 
+
+def _shared_intrinsics(k) -> Intrinsics:
+    """Intrinsics repeated per lane (the JAX batched layout) → one set."""
+    values = []
+    for f in Intrinsics._fields:
+        lanes = np.asarray(getattr(k, f), np.float32).reshape(-1)
+        if not (lanes == lanes[0]).all():
+            raise ValueError(f"the lanes disagree on the intrinsics' {f}: {lanes}")
+        values.append(lanes[0])
+    return Intrinsics(*values)
+
+
+def track_state_from_numpy(state, device="cpu") -> TrackState:
+    """A (batched) JAX ``TrackState`` of numpy leaves → the port's state."""
+    kf = KeyframeData(levels=tuple(
+        level_from_numpy(obs._replace(intrinsics=_shared_intrinsics(obs.intrinsics)), device)
+        for obs in state.kf.levels
+    ))
+    return TrackState(
+        kf=kf, keyframe_pose=pose_from_numpy(state.keyframe_pose, device),
+        current_pose=pose_from_numpy(state.current_pose, device),
+    )
+
+
+def track_state_to_numpy(state: TrackState) -> TrackState:
+    """The port's state as numpy, laid out as the JAX package's: with a lane
+    axis the intrinsics are repeated per lane."""
+    lead = tuple(state.current_pose.q.shape[:-1])
+    levels = []
+    for obs in state.kf.levels:
+        out = level_to_numpy(obs)
+        k = Intrinsics(*(np.broadcast_to(v, lead).copy() for v in out.intrinsics))
+        levels.append(out._replace(intrinsics=k))
+    return TrackState(
+        kf=KeyframeData(levels=tuple(levels)),
+        keyframe_pose=pose_to_numpy(state.keyframe_pose),
+        current_pose=pose_to_numpy(state.current_pose),
+    )

@@ -18,6 +18,12 @@ their order is the JAX package's: 128-pixel chunks visited in bit-reversed
 order, natural order inside a chunk, truncated at the level cap.  The JAX
 package builds that order with one-hot matmuls; here it is a cumsum and a
 scatter.
+
+``precompute_keyframe`` and ``track_frame`` also take a leading lane axis
+(one sequence per lane, the batched tracker of ``parallel.batch``): the
+precompute runs one set of tensor operations for all lanes, and on a GPU
+``track_frame`` is still six launches, each solving one level for every
+lane.  The intrinsics are shared by all lanes.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
 @dataclass(frozen=True)
 class TrackerConfig:
     """Static tracker configuration: the fields of the JAX ``TrackerConfig``
-    that the streaming path uses, with the same defaults."""
+    that the streaming and batched paths use, with the same defaults."""
 
     height: int
     width: int
@@ -145,26 +151,29 @@ _EXTRACT_CHUNK = 128
 
 def _compaction_indices(known: torch.Tensor, cap: int):
     """Flat pixel indices of the first ``cap`` known pixels in visit order,
-    and the ``valid`` mask of the (cap,) slots.
+    and the ``valid`` mask of the (…, cap) slots, per lane of ``known``
+    (…, H, W).
 
     Visit order: 128-pixel chunks in ``_bit_reversal_order(n_chunks)``,
     natural order inside a chunk (the order of the JAX package's
     ``_extract_level_onehot``).  Invalid slots hold index 0.
     """
     device = known.device
-    hw = known.numel()
+    lead = known.shape[:-2]
+    hw = known.shape[-2] * known.shape[-1]
     m = _EXTRACT_CHUNK
     n_chunks = -(-hw // m)
-    known_pad = torch.zeros(n_chunks * m, dtype=torch.bool, device=device)
-    known_pad[:hw] = known.reshape(-1)
+    known_pad = torch.zeros((*lead, n_chunks * m), dtype=torch.bool, device=device)
+    known_pad[..., :hw] = known.reshape(*lead, hw)
     chunk_perm = torch.from_numpy(_bit_reversal_order(n_chunks)).to(device)
     perm = (chunk_perm[:, None] * m + torch.arange(m, device=device)).reshape(-1)
-    known_p = known_pad[perm]
-    ranks = torch.cumsum(known_p.to(torch.int64), dim=0) - 1
+    known_p = known_pad[..., perm]
+    ranks = torch.cumsum(known_p.to(torch.int64), dim=-1) - 1
     take = known_p & (ranks < cap)
     dest = torch.where(take, ranks, torch.full_like(ranks, cap))  # cap = dump slot
-    idxs = torch.zeros(cap + 1, dtype=torch.int64, device=device).scatter_(0, dest, perm)[:cap]
-    total = torch.clamp(known_p.sum(), max=cap)
+    idxs = torch.zeros((*lead, cap + 1), dtype=torch.int64, device=device)
+    idxs = idxs.scatter_(-1, dest, perm.expand_as(dest))[..., :cap]
+    total = torch.clamp(known_p.sum(dim=-1, keepdim=True), max=cap)
     valid = torch.arange(cap, device=device) < total
     return torch.where(valid, idxs, torch.zeros_like(idxs)), valid
 
@@ -179,7 +188,10 @@ def precompute_keyframe(
     masks by coarse-to-fine gradient selection, the DSO-mean inverse-depth
     pyramid, and per-level candidates with template values and Jacobians.
 
-    ``depth_map`` is the int32 depth tensor on the pyramid's device.
+    ``depth_map`` is the int32 depth tensor on the pyramid's device.  With a
+    leading lane axis (depth (K, H, W), levels (K, h, w)) every leaf but the
+    shared intrinsics carries it too, (K, N, …), bit-equal to K one-lane
+    calls, from one set of tensor operations.
     """
     nb_levels = len(img_pyramid)
     intr_levels = camera_mod.multi_res(intrinsics, nb_levels)
@@ -201,17 +213,21 @@ def precompute_keyframe(
         img = img_pyramid[lvl]
         w = img.shape[-1]
         idx, valid = _compaction_indices(id_levels[lvl].known, caps[lvl])
+
+        def gather(x):
+            return torch.gather(x.reshape(*x.shape[:-2], -1), -1, idx)
+
         zero = torch.zeros(idx.shape, dtype=Float, device=idx.device)
         xs = (idx % w).to(Float)
         ys = torch.div(idx, w, rounding_mode="trunc").to(Float)
-        gu = torch.where(valid, gx.reshape(-1)[idx], zero)
-        gv = torch.where(valid, gy.reshape(-1)[idx], zero)
-        tmpl_vals = torch.where(valid, img.reshape(-1)[idx].to(Float), zero)
+        gu = torch.where(valid, gather(gx), zero)
+        gv = torch.where(valid, gather(gy), zero)
+        tmpl_vals = torch.where(valid, gather(img).to(Float), zero)
         # at level 0 this is scale / max(depth, 1) of the raw depth, the value
         # the JAX package recomputes from the gathered depth bytes
-        z = torch.where(valid, id_levels[lvl].idepth.reshape(-1)[idx], zero)
+        z = torch.where(valid, gather(id_levels[lvl].idepth), zero)
         jac = warp_jacobian(gu, gv, xs, ys, z, k)
-        jac = torch.where(valid[:, None], jac, torch.zeros_like(jac))
+        jac = torch.where(valid[..., None], jac, torch.zeros_like(jac))
         levels.append(
             LevelObs(
                 intrinsics=k, template=img, xs=xs, ys=ys, idepth=z, valid=valid,
@@ -219,6 +235,19 @@ def precompute_keyframe(
             )
         )
     return KeyframeData(levels=tuple(levels))
+
+
+_LANE_FIELDS = ("template", "xs", "ys", "idepth", "valid", "tmpl_vals", "jacobians")
+
+
+def map_keyframe(fn, *kfs: KeyframeData) -> KeyframeData:
+    """Keyframe data whose every per-lane tensor is ``fn`` of the matching
+    tensors of ``kfs``; the shared intrinsics are the first keyframe's.
+    ``map_keyframe(lambda x: x[b], kf)`` is lane ``b`` of a batched keyframe."""
+    return KeyframeData(levels=tuple(
+        levels[0]._replace(**{f: fn(*(getattr(o, f) for o in levels)) for f in _LANE_FIELDS})
+        for levels in zip(*(kf.levels for kf in kfs))
+    ))
 
 
 # ---------------------------------------------------------------------------
@@ -309,8 +338,9 @@ def _launch_level(obs: LevelObs, image, state_in, record, **kwargs):
 
 
 def _start_state(model: Pose) -> torch.Tensor:
-    """``state_in`` of a frame's first launch: the pose, nothing failed yet."""
-    return torch.cat([model.q, model.t, model.t.new_zeros(1)])
+    """``state_in`` of a frame's first launch, (…, 8): the pose, nothing
+    failed yet."""
+    return torch.cat([model.q, model.t, model.t.new_zeros((*model.t.shape[:-1], 1))], dim=-1)
 
 
 def solve_level(
@@ -393,11 +423,13 @@ def _mean_flow(model: Pose, coarse: LevelObs) -> torch.Tensor:
 
 
 def _track_frame_kernel(config, kf, img_pyramid, init_model) -> TrackResult:
-    """Coarse-to-fine ``lm_solve_level``: one launch per level, each reading
-    its start pose and the failed-so-far flag from the record of the level
-    before; the finest level's launch also computes the flow.  No host read."""
+    """Coarse-to-fine ``lm_solve_level``: one launch per level for all lanes,
+    each reading its start pose and the failed-so-far flag from the record
+    of the level before; the finest level's launch also computes the flow.
+    No host read."""
+    lead = init_model.q.shape[:-1]
     records = torch.empty(
-        (config.nb_levels, lm_solve.RECORD_SIZE), dtype=Float, device=init_model.q.device
+        (config.nb_levels, *lead, lm_solve.RECORD_SIZE), dtype=Float, device=init_model.q.device
     )
     coarse = kf.levels[-1]
     state = _start_state(init_model)
@@ -409,11 +441,12 @@ def _track_frame_kernel(config, kf, img_pyramid, init_model) -> TrackResult:
             kf.levels[lvl], img_pyramid[lvl], state, records[lvl],
             flow_of=flow_of, **_level_kwargs(config, lvl),
         )
-        state = records[lvl, : lm_solve.STATE_SIZE]
-    counts = records[:, lm_solve.NB_ITER : lm_solve.NB_EVALS + 1].to(torch.int32)
+        state = records[lvl, ..., : lm_solve.STATE_SIZE]
+    # (…, nb_levels, 2): iterations and evaluations per level
+    counts = records[..., lm_solve.NB_ITER : lm_solve.NB_EVALS + 1].to(torch.int32).movedim(0, -2)
     return TrackResult(
-        model=Pose(state[0:4], state[4:7]), failed=state[lm_solve.FAILED_SO_FAR] != 0,
-        flow=records[0, lm_solve.FLOW], nb_iters=counts[:, 0], nb_evals=counts[:, 1],
+        model=Pose(state[..., 0:4], state[..., 4:7]), failed=state[..., lm_solve.FAILED_SO_FAR] != 0,
+        flow=records[0, ..., lm_solve.FLOW], nb_iters=counts[..., 0], nb_evals=counts[..., 1],
     )
 
 
@@ -429,7 +462,10 @@ def track_frame(
     the JAX package, so their iteration counts are reported.
 
     CUDA tensors go through the ``lm_solve_level`` kernel (one launch per
-    level, no host read); CPU tensors through ``track_frame_reference``."""
+    level for all lanes, no host read); CPU tensors through
+    ``track_frame_reference``.  With a lane axis (``init_model`` (B, 4) and
+    (B, 3), keyframe and pyramid (B, …)) every field of the result carries
+    it."""
     if init_model.q.device.type == "cpu":
         return track_frame_reference(config, kf, img_pyramid, init_model)
     return _track_frame_kernel(config, kf, img_pyramid, init_model)
@@ -443,7 +479,20 @@ def track_frame_reference(
 ) -> TrackResult:
     """``track_frame`` through ``solve_level_reference``, chained on the
     host, on any device: the plain version that the kernel path is held
-    against."""
+    against.  A lane axis is solved lane by lane and stacked: the plain
+    version of the lane-axis launch."""
+    if init_model.q.dim() == 2:
+        lanes = [
+            track_frame_reference(
+                config, map_keyframe(lambda x: x[b], kf), [p[b] for p in img_pyramid],
+                Pose(init_model.q[b], init_model.t[b]),
+            )
+            for b in range(init_model.q.shape[0])
+        ]
+        return TrackResult(
+            model=Pose(torch.stack([r.model.q for r in lanes]), torch.stack([r.model.t for r in lanes])),
+            **{f: torch.stack([getattr(r, f) for r in lanes]) for f in TrackResult._fields[1:]},
+        )
     model = init_model
     failed = False
     nb_iters = [0] * config.nb_levels

@@ -15,7 +15,10 @@ picks between the two by the tensors' device, with no fallback.
 
 The start pose comes from an 8-float device tensor ``state_in`` (quaternion
 wxyz, translation, failed-so-far flag) and the result goes to a 72-float
-device record, whose first 8 floats are the next level's ``state_in``:
+device record, whose first 8 floats are the next level's ``state_in``.
+With a leading lane axis (image (B, H, W), candidates (B, N, …), state
+(B, 8), record (B, 72)) one launch solves the level of every lane, one
+thread block cluster per lane:
 
 ======== =====================================================================
 ``[0:7]``  pose handed on: the accepted pose, or the input pose if this or an
@@ -57,12 +60,28 @@ PHASE_CYCLES = slice(64, 69)  # load, sums, reduce, scalar step, whole kernel
 def _library() -> ctypes.CDLL:
     lib = build.load("lm_solve")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.vors_lm_solve_level.argtypes = [p, i, i, p, p, p, p, p, p, i, p, p, f, i, f, p, p, p, p, p, i, p, i, p]
+    lib.vors_lm_solve_level.argtypes = [
+        p, i, i, p, p, p, p, p, p, i, p, p, i, f, i, f, p, p, p, p, p, i, p, i, i, p,
+    ]
     lib.vors_lm_solve_level.restype = ctypes.c_int
     lib.vors_lm_record_size.restype = ctypes.c_int
+    lib.vors_lm_max_active_clusters.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.vors_lm_max_active_clusters.restype = ctypes.c_int
     if lib.vors_lm_record_size() != RECORD_SIZE:
         raise RuntimeError("csrc/lm_solve.cu and ops/lm_solve.py disagree on the record size")
     return lib
+
+
+def _check_state(state_in, lead, device) -> int:
+    """``state_in`` is (…lead, 8) f32 on ``device`` with contiguous rows, as
+    the first 8 floats of each lane's record of the level before; returns
+    the floats from one lane's state to the next."""
+    if state_in.device != device or state_in.dtype != Float:
+        raise ValueError(f"state_in must be f32 on {device}, got {state_in.dtype} on {state_in.device}")
+    if tuple(state_in.shape) != (*lead, STATE_SIZE) or state_in.stride(-1) != 1:
+        raise ValueError(f"state_in must be {(*lead, STATE_SIZE)} with contiguous rows, got "
+                         f"{tuple(state_in.shape)} strides {state_in.stride()}")
+    return state_in.stride(0) if lead else STATE_SIZE
 
 
 def lm_solve_level(
@@ -74,36 +93,40 @@ def lm_solve_level(
 
     ``intrinsics`` is the (5,) tensor ``[cx cy fx fy skew]``, ``state_in`` an
     (8,) and ``record`` a (72,) f32 tensor, all on the CUDA device of
-    ``image``.  ``cluster`` (1, 2, 4 or 8 blocks) defaults to
-    ``residual.cluster_size(n)``.  ``flow_of``, if given, is ``(xs, ys,
-    idepth, valid, intrinsics)`` of the level whose mean optical flow under
-    the pose handed on the launch also computes (the tracker's keyframe
-    criterion, inverse_compositional.rs:211-222).  Nothing is read on the
-    host.
-    ``lm_solve_level.launches`` counts kernel launches.
+    ``image``.  With a lane axis, ``image`` (B, H, W), the candidates (B, N)
+    and (B, N, 6), ``state_in`` (B, 8) with contiguous rows and ``record``
+    (B, 72): the launch is B clusters, one per lane.  ``cluster`` (1, 2, 4
+    or 8 blocks a lane) defaults to ``residual.cluster_size(n)``.
+    ``flow_of``, if given, is ``(xs, ys, idepth, valid, intrinsics)`` of the
+    level whose mean optical flow under the pose handed on the launch also
+    computes (the tracker's keyframe criterion,
+    inverse_compositional.rs:211-222), with the same lane axis.  Nothing is
+    read on the host.  ``lm_solve_level.launches`` counts kernel launches,
+    one for all lanes.
     """
     device = image.device
-    level = residual.level_pointers(image, xs, ys, idepth, tmpl_vals, valid, jacobians)
+    level = residual.level_pointers(image, xs, ys, idepth, tmpl_vals, valid, jacobians, lanes=True)
+    lead = tuple(image.shape[:-2])
     residual.check_tensor("intrinsics", intrinsics, device, Float, (5,))
-    residual.check_tensor("state_in", state_in, device, Float, (STATE_SIZE,))
-    residual.check_tensor("record", record, device, Float, (RECORD_SIZE,))
+    state_stride = _check_state(state_in, lead, device)
+    residual.check_tensor("record", record, device, Float, (*lead, RECORD_SIZE))
     if cluster is None:
         cluster = residual.cluster_size(level[-1])
     flow_args = (None, None, None, None, None, 0)
     if flow_of is not None:
         f_xs, f_ys, f_idepth, f_valid, f_intrinsics = flow_of
-        m = f_xs.shape[0]
+        m = f_xs.shape[-1]
         for name, t in (("flow xs", f_xs), ("flow ys", f_ys), ("flow idepth", f_idepth)):
-            residual.check_tensor(name, t, device, Float, (m,))
-        residual.check_tensor("flow valid", f_valid, device, torch.bool, (m,))
+            residual.check_tensor(name, t, device, Float, (*lead, m))
+        residual.check_tensor("flow valid", f_valid, device, torch.bool, (*lead, m))
         residual.check_tensor("flow intrinsics", f_intrinsics, device, Float, (5,))
         flow_args = (*(t.data_ptr() for t in flow_of), m)
     lib = _library()
     with residual.on_device(device):
         err = lib.vors_lm_solve_level(
-            *level, intrinsics.data_ptr(), state_in.data_ptr(), lm_coef_init, max_iterations,
-            energy_tol, *flow_args, record.data_ptr(), cluster,
-            torch.cuda.current_stream(device).cuda_stream,
+            *level, intrinsics.data_ptr(), state_in.data_ptr(), state_stride, lm_coef_init,
+            max_iterations, energy_tol, *flow_args, record.data_ptr(), cluster,
+            lead[0] if lead else 1, torch.cuda.current_stream(device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"lm_solve_level kernel launch failed: CUDA error {err}")
@@ -112,3 +135,14 @@ def lm_solve_level(
 
 
 lm_solve_level.launches = 0
+
+
+def max_active_clusters(cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks of the solver the current
+    card runs at once (``cudaOccupancyMaxActiveClusters``): lanes beyond
+    that wait for a free slot."""
+    count = ctypes.c_int(0)
+    err = _library().vors_lm_max_active_clusters(cluster, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {err}")
+    return count.value

@@ -79,22 +79,25 @@ def check_tensor(name, t, device, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def level_pointers(image, xs, ys, idepth, tmpl_vals, valid, jacobians):
+def level_pointers(image, xs, ys, idepth, tmpl_vals, valid, jacobians, *, lanes: bool = False):
     """Checks the tensors of one level (all on ``image``'s CUDA device) and
     returns the kernels' leading arguments: the image pointer, height, width,
-    the six candidate pointers and the candidate count."""
+    the six candidate pointers and the candidate count.  With ``lanes`` the
+    tensors may carry a leading lane axis, image (B, H, W) and candidates
+    (B, N, …), laid out lane after lane."""
     device = image.device
     if device.type != "cuda":
         raise ValueError(f"the kernel needs CUDA tensors, got {device}")
-    if image.dim() != 2:
-        raise ValueError(f"image must be (H, W), got {tuple(image.shape)}")
-    n = xs.shape[0]
+    if image.dim() not in ((2, 3) if lanes else (2,)):
+        raise ValueError(f"image must be {'([B,] H, W)' if lanes else '(H, W)'}, got {tuple(image.shape)}")
+    lead = tuple(image.shape[:-2])
+    n = xs.shape[-1]
     check_tensor("image", image, device, torch.uint8, image.shape)
     for name, t in (("xs", xs), ("ys", ys), ("idepth", idepth), ("tmpl_vals", tmpl_vals)):
-        check_tensor(name, t, device, Float, (n,))
-    check_tensor("valid", valid, device, torch.bool, (n,))
-    check_tensor("jacobians", jacobians, device, Float, (n, 6))
-    height, width = image.shape
+        check_tensor(name, t, device, Float, (*lead, n))
+    check_tensor("valid", valid, device, torch.bool, (*lead, n))
+    check_tensor("jacobians", jacobians, device, Float, (*lead, n, 6))
+    height, width = image.shape[-2:]
     return (
         image.data_ptr(), height, width, xs.data_ptr(), ys.data_ptr(), idepth.data_ptr(),
         tmpl_vals.data_ptr(), valid.data_ptr(), jacobians.data_ptr(), n,

@@ -1,0 +1,8 @@
+"""Scaling layer of the port.
+
+- ``batch``: batched multi-sequence tracking, the port of
+  ``visual_odometry_rs_tpu/parallel/batch.py``: a lane per sequence, one
+  ``lm_solve_level`` launch per pyramid level for all lanes.
+"""
+
+from . import batch  # noqa: F401
