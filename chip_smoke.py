@@ -46,6 +46,26 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    and a check frame, batched against single-lane precomputes, and the
    device time of one lane-axis solve per level against its bound.
 
+7. The tracker options.  (a) Each option's instantiation of both kernels
+   (Huber weights with delta 10, the brightness model, both) against its
+   plain version at the six level shapes, with phases 1 and 2's tolerances,
+   two runs bit-equal, and the registers and local memory of each build;
+   the lost-frame detector against ``_eval_energy`` and its cost; three
+   keyframes tracking one frame through the image index, one lane inactive,
+   against one-lane launches.  The per-evaluation path with each option.
+   (b) Three 40-frame streaming runs at 640x480, cap 8192, bucketing on,
+   each beside the default configuration on the same frames: Huber +
+   brightness on an exposure drift, ``dso_fixed`` with a = 0.2, and
+   relocalization (K = 4) on the kidnap of ``tests/test_relocalize.py``;
+   one solver launch per level and frame (and per relocalization attempt),
+   no ``residual_reduce``, no failed frame but the jump, the ATE within 1.5x
+   the JAX package's (``chip_smoke_reference.py``), the kidnap relocalized.
+   Huber alone and brightness alone are timed too.  (c) Phase 6's 32 lanes
+   with Huber, ``dso_fixed`` and a ring of 4, one lane kidnapped: 12 solver
+   launches a frame, only that lane relocalized, no other lane failed, a
+   steady frame without a host read under CUDA's sync debug mode; wall
+   times against the same options without the ring and the default.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
 their launches, errors, times and bounds.
@@ -92,6 +112,74 @@ LANE_CADENCES = (1, 4)
 LANE_TIMED_RUNS = 3  # timed runs of each cadence, in turns
 PRECOMPUTE_LANES = (1, 4, 32)
 PLAIN_LANES, PLAIN_FRAMES = 2, 3  # the lane-axis launch against the per-lane loop
+# phase 7: the tracker options
+OPTIONS = {  # the solver instantiations beside the plain one
+    "huber": dict(robust_delta=10.0),
+    "brightness": dict(brightness_model=True),
+    "huber+brightness": dict(robust_delta=10.0, brightness_model=True),
+}
+EVAL_AB = (1.1, -6.0)  # the gain and bias the evaluations are held at
+AB_RTOL, AB_ATOL = 1e-4, 1e-3  # a brightness solve's (a, b) against the Python loop's
+# an option's solve against the Python loop: the pose and energy tolerances
+# of phase 2; nb_iter within 2, not 1: on an exposure-drifted frame the
+# brightness solve has a flat tail where new_energy > energy is decided
+# within ulps, and one flipped accept/reject changes lambda tenfold (first
+# seen on the card: Huber + brightness at level 5, 11 against 13 iterations,
+# with the pose within the tolerances)
+OPTION_ITER_SLACK = 2
+# f32 operations per inside candidate and evaluation, counted in
+# csrc/residual_eval.cuh: the plain 71; Huber adds |r|, the test, a division,
+# a max, w J and w r; brightness 15 more sums and a T + b
+FLOPS_INSIDE_OF = {"plain": 71, "huber": 82, "brightness": 107, "huber+brightness": 120}
+DSO_A = 0.2  # the DSO threshold coefficient of the accuracy matrix's dso rows
+RELOC_WINDOW = 4
+# tests/test_relocalize.py:93: four steps away, a jump back to the start, then small steps
+KIDNAP_STEP = [0.09, 0.01, 0.005, 0.0, 0.06, 0.0]
+KIDNAP_SMALL = [0.01, 0.002, 0.001, 0.0, 0.005, 0.0]
+KIDNAP_SEED, KIDNAP_JUMP = 23, 5  # frame 5 is the jump back
+# ATE of the JAX package (CPU backend, gather sampling, bucketing on) on
+# phase 7's sequences, by chip_smoke_reference.py
+JAX_ATE_OPTIONS = {
+    "huber+brightness": 0.0007520390074865462,
+    "dso_fixed": 0.0024236515889716815,
+    "relocalize": 0.18893304635673777,
+}
+OPTION_PROFILED_FRAMES = 10  # the last frames of a run, under the profiler
+# the batched run: phase 6's lanes with Huber, dso_fixed and a ring; lane 5
+# shows the kidnap scene instead: carried away on frames 2-7 in six kidnap
+# steps (Huber follows four back without a relocalization) and returned on
+# frame 8 to where it was on frame 1
+BATCH_KIDNAP_LANE, BATCH_KIDNAP_STEPS = 5, 6
+
+
+def drift_grays(grays):
+    """An auto-exposure drift over a sequence: frame f scaled by 1 + 0.2
+    sin(2 pi f / 16) and offset by 12 sin(2 pi f / 11 + 1) (frame 0 as it
+    is), clipped to u8."""
+    import numpy as np
+
+    f = np.arange(len(grays), dtype=np.float64)[:, None, None]
+    gain = 1.0 + 0.2 * np.sin(2 * np.pi * f / 16)
+    bias = 12.0 * np.sin(2 * np.pi * f / 11 + 1.0) * (f > 0)
+    return np.clip(gain * grays.astype(np.float64) + bias, 0, 255).astype(np.uint8)
+
+
+def kidnap_twists(frames):
+    """Twists of a kidnap: four steps away, one jump back to the start, then
+    small steps, ``frames - 1`` twists in all."""
+    import numpy as np
+
+    step = np.asarray(KIDNAP_STEP)
+    return np.asarray([step] * 4 + [-4.0 * step] + [KIDNAP_SMALL] * (frames - 6), np.float32)
+
+
+def batch_kidnap_twists():
+    """The batched run's kidnapped lane: a small step, the kidnap steps, the
+    jump back, small steps (``LANE_FRAMES`` twists)."""
+    import numpy as np
+
+    step, n = np.asarray(KIDNAP_STEP), BATCH_KIDNAP_STEPS
+    return np.asarray([KIDNAP_SMALL] + [step] * n + [-n * step] + [KIDNAP_SMALL] * (LANE_FRAMES - n - 2), np.float32)
 
 
 def _card_line() -> str:
@@ -118,7 +206,7 @@ def _check_close(name, got, ref, n_valid):
     if abs(e - e_ref) > E_RTOL * abs(e_ref):
         raise AssertionError(f"{name}: energy {e} vs {e_ref}")
     err = 0.0
-    for part, ref_part in ((m[:, 6], m_ref[:, 6]), (m[:, :6], m_ref[:, :6])):
+    for part, ref_part in ((m[:, -1], m_ref[:, -1]), (m[:, :-1], m_ref[:, :-1])):
         scale = float(ref_part.abs().max()) + 1.0
         a, b = part / scale, ref_part / scale
         if not torch.allclose(a, b, rtol=GH_RTOL, atol=GH_ATOL):
@@ -159,17 +247,18 @@ def _device_us(fn, kernel_name, reps=50) -> float:
     raise AssertionError(f"profiler: {PROFILER_ATTEMPTS} runs recorded no {reps} launches of {kernel_name}")
 
 
-def _bound(n, image_shape, inside, evaluations, out_floats):
+def _bound(n, image_shape, inside, evaluations, out_floats, flops_inside=FLOPS_INSIDE):
     """Least time the card could take: ``(ms, "bytes" | "operations")``.
     Every input read once (candidates, the u8 image, 12 or 13 parameters),
     the output written once; the operations of ``evaluations`` evaluations
-    with ``inside`` candidates in the domain.  For a launch of several lanes
-    ``inside`` and ``evaluations`` are lists, one entry a lane."""
+    with ``inside`` candidates in the domain (``flops_inside`` each, the
+    option's count).  For a launch of several lanes ``inside`` and
+    ``evaluations`` are lists, one entry a lane."""
     import numpy as np
 
     inside, evaluations = np.atleast_1d(inside), np.atleast_1d(evaluations)
     nbytes = len(inside) * (n * CANDIDATE_BYTES + image_shape[0] * image_shape[1] + 4 * 13 + 4 * out_floats)
-    flops = float(np.sum(evaluations * (n * FLOPS_WARP + inside * FLOPS_INSIDE)))
+    flops = float(np.sum(evaluations * (n * FLOPS_WARP + inside * flops_inside)))
     by_bytes, by_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_F32_FLOPS
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -268,7 +357,12 @@ def phase_evaluation(kf, bucketed, pyr1, model):
     return max_err, rows
 
 
-def _compare_solves(name, out, ref):
+def _solved_pose(model):
+    """The pose of a solve's model: itself, or a brightness state's pose."""
+    return getattr(model, "pose", model)
+
+
+def _compare_solves(name, out, ref, iter_slack=SOLVE_ITER_SLACK):
     """The solver kernel's result against the Python loop's; returns the
     largest pose difference."""
     import torch
@@ -276,10 +370,11 @@ def _compare_solves(name, out, ref):
     nb_iter, failed = int(out.nb_iter), bool(out.failed)
     if failed != bool(ref.failed):
         raise AssertionError(f"{name}: failed {failed} vs {ref.failed}")
-    if abs(nb_iter - int(ref.nb_iter)) > SOLVE_ITER_SLACK:
+    if abs(nb_iter - int(ref.nb_iter)) > iter_slack:
         raise AssertionError(f"{name}: nb_iter {nb_iter} vs {ref.nb_iter}")
-    dt = float((out.state.model.t - ref.state.model.t).abs().max())
-    dq = float((out.state.model.q - ref.state.model.q).abs().max())
+    got, want = _solved_pose(out.state.model), _solved_pose(ref.state.model)
+    dt = float((got.t - want.t).abs().max())
+    dq = float((got.q - want.q).abs().max())
     if not (dt <= SOLVE_T_ATOL and dq <= SOLVE_Q_ATOL):
         raise AssertionError(f"{name}: pose differs, |dt| {dt} |dq| {dq}")
     e, e_ref = float(out.state.energy), float(ref.state.energy)
@@ -408,31 +503,34 @@ def _inside_count(obs, image, model) -> float:
         image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, params)[2])
 
 
-def _track(seq, frames, device, tracker_class=None, tracker=None, first=1):
+def _track(seq, frames, device, tracker_class=None, tracker=None, first=1, grays=None, may_fail=(), **options):
     """Tracks frames ``first..frames-1`` through ``Tracker.track`` (a new
-    tracker from frame 0 unless one is given); returns (tracker, poses,
-    per-frame seconds, evaluations)."""
+    tracker from frame 0 unless one is given, with the configuration's
+    ``options``; ``grays`` replaces the sequence's images); a frame not in
+    ``may_fail`` must not fail.  Returns (tracker, poses, per-frame seconds,
+    evaluations)."""
     import torch
 
     from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
 
     config = tracker_mod.TrackerConfig(
-        height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=CAP, bucket_candidates=True
+        height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=CAP, bucket_candidates=True, **options
     )
     ts = seq.timestamps
+    grays = seq.grays if grays is None else grays
     trk = tracker
     if trk is None:
         trk = (tracker_class or tracker_mod.Tracker)(
-            config, seq.intrinsics, float(ts[0]), seq.depths[0], float(ts[0]), seq.grays[0], device=device
+            config, seq.intrinsics, float(ts[0]), seq.depths[0], float(ts[0]), grays[0], device=device
         )
     poses, seconds, evaluations = [trk.current_frame()[1]], [], 0
     for f in range(first, frames):
         start = time.perf_counter()
-        trk.track(float(ts[f]), seq.depths[f], float(ts[f]), seq.grays[f])
+        trk.track(float(ts[f]), seq.depths[f], float(ts[f]), grays[f])
         if device.type == "cuda":
             torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
-        if trk.last_failed:
+        if trk.last_failed and f not in may_fail:
             raise AssertionError(f"frame {f} failed on {device}")
         evaluations += sum(trk.last_nb_evals)
         poses.append(trk.current_frame()[1])
@@ -476,12 +574,12 @@ def _check_frames(cadence):
     return sum((t + 1) % cadence == 0 for t in range(LANE_FRAMES))
 
 
-def _batched_run(config, intrinsics, state, depths, grays, cadence):
+def _batched_run(config, intrinsics, state, depths, grays, cadence, ring=None):
     """Tracks frames 1..F of every lane through ``batched_track_sequence``
     in clips of ``LANE_CHUNK`` frames, carrying the pending mask, the global
-    frame index and the warm start; each clip's poses and diagnostics come
-    back in one read.  Returns (q, t, diagnostics as numpy (F, B, …),
-    seconds)."""
+    frame index, the warm start and the relocalization ``ring`` if given;
+    each clip's poses and diagnostics come back in one read.  Returns (q, t,
+    diagnostics as numpy (F, B, …), seconds)."""
     import numpy as np
     import torch
 
@@ -493,11 +591,12 @@ def _batched_run(config, intrinsics, state, depths, grays, cadence):
     start = time.perf_counter()
     for f0 in range(0, LANE_FRAMES, LANE_CHUNK):
         f1 = min(f0 + LANE_CHUNK, LANE_FRAMES)
-        state, (poses, diags), pending, prev = batch.batched_track_sequence(
+        state, (poses, diags), pending, prev, *rest = batch.batched_track_sequence(
             config, intrinsics, state, depths[1 + f0:1 + f1], grays[1 + f0:1 + f1],
             switch_cadence=cadence, pending0=pending, frame_offset=f0, return_pending=True,
-            prev_pose0=prev, return_prev=True,
+            reloc_ring=ring, prev_pose0=prev, return_prev=True,
         )
+        ring = rest[0] if rest else None
         parts.append(batch.outputs_to_numpy(poses, diags))  # the clip's one read
     seconds = time.perf_counter() - start
     diags = batch.StepDiagnostics(*(np.concatenate(x) for x in zip(*(p[2] for p in parts))))
@@ -736,6 +835,379 @@ def phase_batched(card, intrinsics, depths_np, grays_np, dev):
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the tracker options
+# ---------------------------------------------------------------------------
+
+
+def _option_solvers(name, obs, image, dev):
+    """(solve on the card, solve by the Python loop) of one level from the
+    start of a frame, with option ``name``."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+
+    opts = OPTIONS[name]
+    delta = opts.get("robust_delta", 0.0)
+    identity = pose_mod.identity(dev)
+    if not opts.get("brightness_model", False):
+        return (lambda: tracker_mod.solve_level(obs, image, identity, robust_delta=delta),
+                lambda: tracker_mod.solve_level_reference(obs, image, identity, robust_delta=delta))
+    start = tracker_mod.BrightnessState(identity, torch.tensor([1.0, 0.0], device=dev))
+    return (lambda: tracker_mod.solve_level_brightness(obs, image, start, robust_delta=delta),
+            lambda: tracker_mod.solve_level_brightness_reference(obs, image, start, robust_delta=delta))
+
+
+def phase_option_kernels(kf, bucketed, pyr1, pyr1_drift, model, dev):
+    """Phase 7a: each option's instantiation of ``residual_reduce`` and
+    ``lm_solve_level`` against its plain version at the six level shapes,
+    caps and buckets (brightness on an exposure-drifted frame); two runs of a
+    solve bit-equal.  Returns {option: (evaluation error, solve error,
+    evaluation row, solver row)}, the rows at level 0 as bucketed."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, residual
+
+    identity = pose_mod.identity(dev)
+    results = {}
+    for name, opts in OPTIONS.items():
+        delta = opts.get("robust_delta", 0.0)
+        bright = opts.get("brightness_model", False)
+        kw = dict(robust_delta=delta, ab=torch.tensor(EVAL_AB, device=dev) if bright else None)
+        pyr = pyr1_drift if bright else pyr1
+        eval_err = solve_err = 0.0
+        eval_row = solve_row = None
+        for lvl in reversed(range(LEVELS)):
+            image = pyr[lvl]
+            for label, obs in (("cap", kf.levels[lvl]), ("bucket", bucketed.levels[lvl])):
+                n = obs.xs.shape[0]
+                params = torch.cat([model.q, model.t, obs.intrinsics.vector()])
+                args = (image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, params)
+                got = residual.residual_reduce(*args, **kw)
+                ref = residual.residual_reduce_reference(*args, **kw)
+                torch.cuda.synchronize()
+                tag = f"{name} level {lvl} {label} N={n}"
+                eval_err = max(eval_err, _check_close(tag, got, ref, int(obs.valid.sum())))
+                solve, reference = _option_solvers(name, obs, image, dev)
+                out, again, want = solve(), solve(), reference()
+                torch.cuda.synchronize()
+                solve_err = max(solve_err, _compare_solves(tag, out, want, OPTION_ITER_SLACK))
+                if not (torch.equal(_solved_pose(out.state.model).t, _solved_pose(again.state.model).t)
+                        and torch.equal(_solved_pose(out.state.model).q, _solved_pose(again.state.model).q)
+                        and torch.equal(out.state.energy, again.state.energy)):
+                    raise AssertionError(f"{tag}: two runs of the same solve are not bit-equal")
+                if bright:
+                    ab, ab_ref = out.state.model.ab.cpu().numpy(), want.state.model.ab.cpu().numpy()
+                    if not np.allclose(ab, ab_ref, rtol=AB_RTOL, atol=AB_ATOL):
+                        raise AssertionError(f"{tag}: (a, b) {ab} vs {ab_ref}")
+                if label != "bucket":
+                    continue
+                record = torch.empty(lm_solve.RECORD_SIZE, device=dev)
+                state_in = tracker_mod._start_state(identity)
+
+                def launch():
+                    lm_solve.lm_solve_level(
+                        image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians,
+                        obs.intrinsics.vector(), state_in, record, lm_coef_init=0.1, max_iterations=20,
+                        energy_tol=1.0, robust_delta=delta, brightness=bright)
+
+                k_ms = _time_ms(launch, reps=50, warmup=5)
+                d_us = _device_us(launch, "lm_solve_level_kernel", reps=20)
+                evals = int(record[lm_solve.NB_EVALS])
+                b_ms, b_by = _bound(n, image.shape, _inside_count(obs, image, identity), evals,
+                                    lm_solve.RECORD_SIZE, FLOPS_INSIDE_OF[name])
+                print(f"{name} solve level {lvl} N={n} from identity, {evals} evaluations: kernel {k_ms:.4f} ms "
+                      f"per call (median of 50), {d_us:.2f} us on the device (profiler, mean of 20); bound "
+                      f"{b_ms:.6f} ms by {b_by}")
+                if lvl == 0:
+                    p_ms = _time_ms(reference, reps=3, warmup=1)
+                    solve_row = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+                    buf = torch.empty(residual.OUT_SIZE_BRIGHTNESS if bright else residual.OUT_SIZE, device=dev)
+                    e_ms = _time_ms(lambda: residual.residual_reduce(*args, out=buf, **kw))
+                    e_plain = _time_ms(lambda: residual.residual_reduce_reference(*args, **kw), reps=20)
+                    e_bound, e_by = _bound(n, image.shape, float(got[2]), 1, buf.numel(), FLOPS_INSIDE_OF[name])
+                    eval_row = dict(ms=e_ms, plain_ms=e_plain, bound_ms=e_bound, bound_by=e_by)
+                    print(f"{name} at level 0 N={n}: solve, Python loop {p_ms:.3f} ms (median of 3); one "
+                          f"evaluation, kernel {e_ms:.4f} ms, twin {e_plain:.4f} ms, bound {e_bound:.6f} ms by {e_by}")
+        for kernel_name, resources in (("lm_solve_level", lm_solve.resources), ("residual_reduce", residual.resources)):
+            regs, local = resources(brightness=bright, robust=delta > 0.0)
+            print(f"{kernel_name} ({name}): {regs} registers, {local} bytes of local memory a thread "
+                  f"(cudaFuncGetAttributes)")
+        print(f"{name}: evaluations against the twin at 12 shapes, max scaled error {eval_err:.3e}; solves "
+              f"against the Python loop, max pose error {solve_err:.3e}; two runs bit-equal")
+        results[name] = (eval_err, solve_err, eval_row, solve_row)
+    print(f"tolerance: the evaluation's and the solver's of phases 1 and 2, nb_iter within {OPTION_ITER_SLACK}; "
+          f"(a, b) rtol {AB_RTOL} atol {AB_ATOL}")
+    return results
+
+
+def phase_detector_and_lanes(config, seq, bucketed, pyr1, dev):
+    """Phase 7a, continued: the lost-frame detector against ``_eval_energy``
+    and its cost; the image-index and active-flag lanes against one-lane
+    launches.  Returns the detector's relative energy error."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, pyramid
+
+    identity = pose_mod.identity(dev)
+    out = tracker_mod.track_frame(config, bucketed, pyr1, identity, detector=True)
+    energy, _, inside = tracker_mod._eval_energy(bucketed.levels[0], pyr1[0], out.model)
+    det = out.detector.tolist()
+    err = abs(det[0] - float(energy)) / abs(float(energy))
+    if not (err <= E_RTOL and det[1] == float(inside.sum()) and det[2] == float(bucketed.levels[0].valid.sum())):
+        raise AssertionError(f"detector {det} vs energy {float(energy)}, inside {float(inside.sum())}")
+    obs = bucketed.levels[0]
+    record = torch.empty(lm_solve.RECORD_SIZE, device=dev)
+    state_in = tracker_mod._start_state(identity)
+    timings = {}
+    for detector in (False, True, False, True):
+        timings.setdefault(detector, []).append(_device_us(lambda: lm_solve.lm_solve_level(
+            pyr1[0], obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, obs.intrinsics.vector(),
+            state_in, record, lm_coef_init=0.1, max_iterations=20, energy_tol=1.0, detector=detector),
+            "lm_solve_level_kernel", reps=20))
+    print(f"detector: energy {det[0]:.6g} vs _eval_energy {float(energy):.6g} (rel err {err:.2e}), inside "
+          f"{det[1]:.0f}, valid {det[2]:.0f}; the finest solve (N={obs.xs.shape[0]}) on the device "
+          f"{min(timings[False]):.2f} us without the detector, {min(timings[True]):.2f} us with it (profiler, "
+          f"best of two means of 20)")
+    # three keyframes tracking one frame through the image index, the middle lane inactive
+    frames = (0, 8, 16)
+    kfs = [tracker_mod.precompute_keyframe(
+        config, seq.intrinsics.to(dev), torch.from_numpy(seq.depths[f].astype("int32")).to(dev),
+        pyramid.mean_pyramid(LEVELS, torch.from_numpy(seq.grays[f]).to(dev))) for f in frames]
+    stacked = tracker_mod.map_keyframe(lambda *xs: torch.stack(xs), *kfs)
+    pyr = pyramid.mean_pyramid(LEVELS, torch.from_numpy(seq.grays[17]).to(dev))
+    index = torch.zeros(3, dtype=torch.int32, device=dev)
+    active = torch.tensor([True, False, True], device=dev)
+    lanes = tracker_mod.track_frame(config, stacked, [p[None] for p in pyr], tracker_mod.identity_lanes(3, dev),
+                                    detector=True, image_index=index, active=active)
+    for b in (0, 2):
+        one = tracker_mod.track_frame(config, kfs[b], pyr, identity, detector=True)
+        if not (torch.equal(lanes.model.t[b], one.model.t) and torch.equal(lanes.model.q[b], one.model.q)
+                and torch.equal(lanes.nb_iters[b], one.nb_iters) and torch.equal(lanes.detector[b], one.detector)):
+            raise AssertionError(f"image-index lane {b} differs from its one-lane frame")
+    if not (torch.equal(lanes.model.t[1], identity.t) and lanes.nb_iters[1].tolist() == [0] * LEVELS
+            and bool(lanes.detector[1, 0].isnan()) and not bool(lanes.failed[1])):
+        raise AssertionError("the inactive lane is not a pass-through")
+    print(f"image index and active flag: 3 keyframes (frames {frames}) on frame 17 in one launch a level, "
+          f"lanes 0 and 2 bit-equal to one-lane frames, lane 1 inactive and passed through ok")
+    return err
+
+
+def _option_run(seq, grays, options, dev, may_fail=()):
+    """A 40-frame streaming run with ``options`` on ``grays``: the last
+    ``OPTION_PROFILED_FRAMES`` frames under the profiler.  Returns a dict of
+    what the checks and the report need."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.eval import ate
+    from visual_odometry_rs_tpu_torch.models import relocalize, tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, residual
+    from visual_odometry_rs_tpu_torch.utils import profiling
+
+    attempts = []
+    attempt = relocalize.attempt
+
+    def counted(*args, **kwargs):
+        attempts.append(1)
+        return attempt(*args, **kwargs)
+
+    relocalize.attempt = counted
+    residual.residual_reduce.launches = 0
+    lm_solve.lm_solve_level.launches = 0
+    lm_solve.lm_solve_level.variant_launches = {}
+    try:
+        split = FRAMES - OPTION_PROFILED_FRAMES
+        trk, poses, seconds, _ = _track(seq, split, dev, grays=grays, may_fail=may_fail, **options)
+        box = []
+        prof = profiling.profile_device(lambda: box.append(
+            _track(seq, FRAMES, dev, tracker=trk, first=split, grays=grays, may_fail=may_fail, **options)))
+        poses += box[0][1][1:]
+    finally:
+        relocalize.attempt = attempt
+    torch.cuda.synchronize()
+    return dict(
+        tracker=trk, ate=ate.ate_rmse(poses, seq.poses[:FRAMES]), poses=poses, seconds=seconds,
+        solves=lm_solve.lm_solve_level.launches, variants=dict(lm_solve.lm_solve_level.variant_launches),
+        evaluations=residual.residual_reduce.launches, attempts=len(attempts), profile=prof,
+    )
+
+
+def _frame_report(label, run):
+    prof = run["profile"]
+    ms = [1e3 * x for x in run["seconds"][1:]]
+    return (f"{label}: per-frame ms median {statistics.median(ms):.3f}, mean {statistics.mean(ms):.3f} (frames "
+            f"2..{len(ms) + 1}); profiled frames {FRAMES - OPTION_PROFILED_FRAMES}..{FRAMES - 1}: "
+            f"{prof.launches / OPTION_PROFILED_FRAMES:.1f} kernel launches and "
+            f"{prof.device_to_host_copies / OPTION_PROFILED_FRAMES:.1f} host reads a frame, device busy "
+            f"{100 * prof.busy_share:.2f}%; solver launches {run['solves']} for {FRAMES - 1} frames")
+
+
+def phase_option_streaming(seq, dev):
+    """Phase 7b: three 40-frame runs of the streaming tracker with options,
+    each beside the default configuration on the same frames.  Returns the
+    solver launches of each instantiation on these main paths."""
+    import numpy as np
+
+    from visual_odometry_rs_tpu_torch.dataset import synthetic
+
+    start = time.perf_counter()
+    kidnap = synthetic.generate_sequence(nb_frames=FRAMES, height=HEIGHT, width=WIDTH, seed=KIDNAP_SEED,
+                                         twist_per_frame=kidnap_twists(FRAMES))
+    drift = drift_grays(seq.grays[:FRAMES])
+    print(f"rendered the kidnap sequence ({FRAMES} frames) in {time.perf_counter() - start:.1f} s")
+    runs = (
+        ("huber+brightness", seq, drift, OPTIONS["huber+brightness"], ()),
+        ("dso_fixed", seq, seq.grays[:FRAMES], dict(candidate_selector="dso_fixed", dso_threshold_coef_a=DSO_A), ()),
+        ("relocalize", kidnap, kidnap.grays, dict(relocalize_window=RELOC_WINDOW), (KIDNAP_JUMP,)),
+    )
+    launches = {}
+    for name, s, grays, options, may_fail in runs:
+        base = _option_run(s, grays, {}, dev, may_fail=range(FRAMES) if name == "relocalize" else ())
+        run = _option_run(s, grays, options, dev, may_fail=may_fail)
+        trk = run["tracker"]
+        if run["solves"] != LEVELS * (FRAMES - 1 + run["attempts"]) or run["evaluations"] != 0:
+            raise AssertionError(f"{name}: {run['solves']} lm_solve_level launches for {FRAMES - 1} frames and "
+                                 f"{run['attempts']} relocalization attempts, {run['evaluations']} residual_reduce")
+        for variant, count in run["variants"].items():
+            launches[variant] = launches.get(variant, 0) + count
+        bound = 1.5 * JAX_ATE_OPTIONS[name]
+        print(f"{name}: {FRAMES - 1} frames at {WIDTH}x{HEIGHT}, cap {CAP}, bucketing on: solver launches "
+              f"{run['variants']}, {run['attempts']} relocalization attempts (one launch a level each), 0 "
+              f"residual_reduce; keyframe switches {trk.keyframe_switches}; ATE {run['ate']:.6e} m, bound "
+              f"{bound:.6e} m = 1.5 x JAX package ATE {JAX_ATE_OPTIONS[name]:.6e} m; the default configuration "
+              f"on the same frames: ATE {base['ate']:.6e} m")
+        print("  " + _frame_report(f"{name}", run))
+        print("  " + _frame_report("default", base))
+        if not run["ate"] <= bound:
+            raise AssertionError(f"{name}: ATE {run['ate']} above {bound}")
+        if name == "relocalize":
+            errors = [float(np.linalg.norm(run["poses"][f].t.numpy() - s.poses[f].t.numpy()))
+                      for f in range(KIDNAP_JUMP, KIDNAP_JUMP + 3)]
+            print(f"  relocalizations {trk.relocalizations}; error after the jump (frames {KIDNAP_JUMP}-"
+                  f"{KIDNAP_JUMP + 2}): {', '.join(f'{e:.4f}' for e in errors)} m; without relocalization "
+                  f"{float(np.linalg.norm(base['poses'][KIDNAP_JUMP + 2].t.numpy() - s.poses[KIDNAP_JUMP + 2].t.numpy())):.4f} m")
+            if trk.relocalizations < 1 or max(errors) > 0.02:
+                raise AssertionError(f"relocalize: {trk.relocalizations} relocalizations, post-jump errors {errors}")
+    # Huber alone and brightness alone on the drifting frames, for their times and launches
+    for name in ("huber", "brightness"):
+        run = _option_run(seq, drift, OPTIONS[name], dev)
+        if run["solves"] != LEVELS * (FRAMES - 1):
+            raise AssertionError(f"{name}: {run['solves']} solver launches for {FRAMES - 1} frames")
+        for variant, count in run["variants"].items():
+            launches[variant] = launches.get(variant, 0) + count
+        print("  " + _frame_report(f"{name} alone on the drifting frames, ATE {run['ate']:.6e} m", run))
+    return launches
+
+
+def phase_option_evaluations(seq, dev):
+    """The per-evaluation path with each option (the Python LM loop on the
+    card, every evaluation one ``residual_reduce`` launch of the option's
+    instantiation); returns the launches by instantiation."""
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, residual
+
+    class ReferenceTracker(tracker_mod.Tracker):
+        _track_frame = staticmethod(tracker_mod.track_frame_reference)
+
+    drift = drift_grays(seq.grays[:REFERENCE_FRAMES])
+    residual.residual_reduce.variant_launches = {}
+    for name, options in OPTIONS.items():
+        before, solves = residual.residual_reduce.launches, lm_solve.lm_solve_level.launches
+        _, _, _, evaluations = _track(seq, 4, dev, ReferenceTracker, grays=drift, **options)
+        launched = residual.residual_reduce.launches - before
+        if launched != evaluations or lm_solve.lm_solve_level.launches != solves:
+            raise AssertionError(f"{name} per-evaluation path: {launched} launches for {evaluations} evaluations")
+    print(f"per-evaluation path, 3 frames a option: residual_reduce launches {residual.residual_reduce.variant_launches}")
+    return dict(residual.residual_reduce.variant_launches)
+
+
+def phase_option_batched(card, intrinsics, depths_np, grays_np, dev):
+    """Phase 7c: the batched driver with Huber, dso_fixed and a ring of
+    ``RELOC_WINDOW``, one lane kidnapped.  Returns the solver launches of
+    the Huber instantiation."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.dataset import synthetic
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, residual
+    from visual_odometry_rs_tpu_torch.parallel import batch
+
+    lane = BATCH_KIDNAP_LANE
+    kid = synthetic.generate_sequence(nb_frames=LANE_FRAMES + 1, height=HEIGHT, width=WIDTH, seed=KIDNAP_SEED,
+                                      twist_per_frame=batch_kidnap_twists())
+    depths_np, grays_np = depths_np.copy(), grays_np.copy()
+    depths_np[:, lane], grays_np[:, lane] = kid.depths, kid.grays
+    intrinsics = intrinsics.to(dev)
+    depths = torch.from_numpy(depths_np.astype(np.int32)).to(dev)
+    grays = torch.from_numpy(grays_np).to(dev)
+    options = dict(robust_delta=10.0, candidate_selector="dso_fixed", dso_threshold_coef_a=DSO_A)
+    config = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=LANE_CAP,
+                                       relocalize_window=RELOC_WINDOW, **options)
+    no_ring = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=LANE_CAP,
+                                        **options)
+    default = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=LANE_CAP)
+    cadence = LANE_CADENCES[-1]
+    state0 = batch.batched_init_state(config, intrinsics, depths[0], grays[0], device=dev)
+    ring0 = batch.batched_init_ring(config, state0)
+    plain0 = batch.batched_init_state(default, intrinsics, depths[0], grays[0], device=dev)
+
+    residual.residual_reduce.launches = 0
+    lm_solve.lm_solve_level.launches = 0
+    lm_solve.lm_solve_level.variant_launches = {}
+    q, t, diags, _ = _batched_run(config, intrinsics, state0, depths, grays, cadence, ring=ring0)
+    solves, huber = lm_solve.lm_solve_level.launches, lm_solve.lm_solve_level.variant_launches.get("huber", 0)
+    if solves != 2 * LEVELS * LANE_FRAMES or huber != solves or residual.residual_reduce.launches != 0:
+        raise AssertionError(f"batched options: {lm_solve.lm_solve_level.variant_launches} solver launches for "
+                             f"{LANE_FRAMES} frames, {residual.residual_reduce.launches} residual_reduce")
+    others = np.arange(LANES) != lane
+    if not diags.relocalized[:, lane].any() or diags.relocalized[:, others].any() or diags.failed[:, others].any():
+        raise AssertionError(f"batched options: relocalized {np.argwhere(diags.relocalized).tolist()}, failed "
+                             f"{np.argwhere(diags.failed).tolist()}")
+    bad = [f for f in np.nonzero(diags.switched.any(axis=1))[0] if (f + 1) % cadence]
+    if bad:
+        raise AssertionError(f"batched options: switches on frames {bad} off the check frames")
+    errors = np.linalg.norm(t[:, lane] - np.stack([p.t.numpy() for p in kid.poses[1:]]), axis=-1)
+    print(f"batched, {LANES} lanes, cap {LANE_CAP}, cadence {cadence}, Huber + dso_fixed (a = {DSO_A}) + ring of "
+          f"{RELOC_WINDOW}: {solves} lm_solve_level launches for {LANE_FRAMES} frames (the frame's six and the "
+          f"recovery's six); lane {lane} kidnapped on frames 2-{BATCH_KIDNAP_STEPS + 1}, relocalized on frames "
+          f"{(np.nonzero(diags.relocalized[:, lane])[0] + 1).tolist()}, error {', '.join(f'{e:.3f}' for e in errors)} m; "
+          f"no other lane relocalized or failed; switches per frame {diags.switched.sum(axis=1).tolist()}")
+    # wall times in turns: the ring, no ring, the default configuration
+    seconds = {"ring": [], "no ring": [], "default": []}
+    for _ in range(2):
+        seconds["ring"].append(_batched_run(config, intrinsics, state0, depths, grays, cadence, ring=ring0)[3])
+        seconds["no ring"].append(_batched_run(no_ring, intrinsics, state0, depths, grays, cadence)[3])
+        seconds["default"].append(_batched_run(default, intrinsics, plain0, depths, grays, cadence)[3])
+    frames = LANES * LANE_FRAMES
+    print("batched wall, " + "; ".join(f"{k} {', '.join(f'{1e3 * x:.1f}' for x in v)} ms = "
+                                       f"{frames / min(v):.1f} fps of the card (best)" for k, v in seconds.items()))
+    # one steady frame (no check) of each, under the profiler and CUDA's sync debug mode
+    for label, cfg, state, ring, expected in (("ring", config, state0, ring0, 2 * LEVELS),
+                                              ("no ring", no_ring, state0, None, LEVELS),
+                                              ("default", default, plain0, None, LEVELS)):
+        def steady():
+            torch.cuda.set_sync_debug_mode("error")  # raises if the frame waits for the device
+            try:
+                return batch.batched_track_sequence(cfg, intrinsics, state, depths[1:2], grays[1:2],
+                                                    switch_cadence=cadence, reloc_ring=ring)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        prof, _ = _profiled(steady, expected)
+        if prof.device_to_host_copies != 0:
+            raise AssertionError(f"steady frame ({label}): {prof.device_to_host_copies} host reads")
+        print(f"steady batched frame ({label}): {prof.launches} kernel launches, 0 host reads, device busy "
+              f"{prof.device_busy_ms * 1e3:.1f} us of {prof.wall_ms:.2f} ms (profiler on)")
+    return huber
+
+
 def main() -> int:
     try:
         import torch
@@ -748,8 +1220,10 @@ def main() -> int:
     from visual_odometry_rs_tpu_torch.dataset import synthetic
     from visual_odometry_rs_tpu_torch.eval import ate
     from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
-    from visual_odometry_rs_tpu_torch.ops import build, lm_solve, residual
+    from visual_odometry_rs_tpu_torch.ops import build, lm_solve, pyramid, residual
     from visual_odometry_rs_tpu_torch.utils import profiling
+
+    script_start = time.perf_counter()
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the twin's matmul in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -859,6 +1333,17 @@ def main() -> int:
           f"{time.perf_counter() - start:.1f} s")
     lane_row = phase_batched(card, lane_intrinsics, lane_depths, lane_grays, dev)
 
+    # phase 7: the tracker options
+    seven = time.perf_counter()
+    drifted = torch.from_numpy(drift_grays(seq.grays[:2])[1]).to(dev)
+    option_results = phase_option_kernels(kf, bucketed, pyr1, pyramid.mean_pyramid(LEVELS, drifted), model, dev)
+    detector_err = phase_detector_and_lanes(config, seq, bucketed, pyr1, dev)
+    option_evals = phase_option_evaluations(seq, dev)
+    option_solves = phase_option_streaming(seq, dev)
+    option_solves["huber"] = option_solves.get("huber", 0) + phase_option_batched(
+        card, lane_intrinsics, lane_depths, lane_grays, dev)
+    print(f"phase 7 (options): {time.perf_counter() - seven:.1f} s")
+
     def row(rows):  # level 0 as the tracker buckets it
         return next(r for r in rows if r["level"] == 0 and r["shape"] == "bucket")
 
@@ -879,6 +1364,18 @@ def main() -> int:
         "source": "visual_odometry_rs_tpu_torch/csrc/lm_solve.cu", "replaces": replaces, **lane_row,
         "library_ms": None,
     })
+    for name, (eval_err, solve_err, eval_row, solve_row) in option_results.items():
+        for kernel, source, launches, max_err, r in (
+            ("residual_reduce", "residual_reduce.cu", option_evals.get(name, 0), eval_err, eval_row),
+            ("lm_solve_level", "lm_solve.cu", option_solves.get(name, 0), max(solve_err, detector_err), solve_row),
+        ):
+            if launches == 0:
+                raise AssertionError(f"{kernel} ({name}) was not launched on its path")
+            kernels.append({
+                "name": f"{kernel} ({name})", "route": "cuda", "source": f"visual_odometry_rs_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": max_err, **r, "library_ms": None,
+            })
+    print(f"chip_smoke: {time.perf_counter() - script_start:.1f} s from the build to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

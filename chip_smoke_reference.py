@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""The JAX package's ATE on ``chip_smoke.py``'s streaming sequences (CPU).
+
+    JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [plain|huber+brightness|dso_fixed|relocalize ...]
+
+``chip_smoke.py`` holds the port's ATE on the card within 1.5x of these
+numbers (``JAX_ATE`` for phase 4, ``JAX_ATE_OPTIONS`` for phase 7).  Each
+run tracks the 40 frames that the smoke test tracks, at 640x480 with 6
+levels and cap 8192, bucketing on and gather sampling, through the JAX
+package's host ``Tracker``, and prints one JSON line.  A run holds a few GiB
+of host memory; the script stops itself if it passes ``MEMORY_LIMIT_GIB``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import threading
+import time
+
+import chip_smoke as smoke
+
+MEMORY_LIMIT_GIB = 16.0
+RUNS = {
+    "plain": ("phase4", {}),
+    "huber+brightness": ("drift", smoke.OPTIONS["huber+brightness"]),
+    "dso_fixed": ("phase4", dict(candidate_selector="dso_fixed", dso_threshold_coef_a=smoke.DSO_A)),
+    "relocalize": ("kidnap", dict(relocalize_window=smoke.RELOC_WINDOW)),
+}
+
+
+def _watch_memory():
+    """Ends the process when its resident memory passes the limit."""
+    while True:
+        with open("/proc/self/status") as f:
+            rss_kib = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+        if rss_kib > MEMORY_LIMIT_GIB * 2**20:
+            print(f"resident memory {rss_kib / 2**20:.1f} GiB above {MEMORY_LIMIT_GIB} GiB: stopping",
+                  file=sys.stderr, flush=True)
+            os._exit(3)
+        time.sleep(0.2)
+
+
+def sequence(kind):
+    """(grays, depths, ground-truth poses, intrinsics) of one of the smoke
+    test's streaming sequences, from the port's generator (bit-equal to the
+    JAX package's)."""
+    from visual_odometry_rs_tpu_torch.dataset import synthetic
+
+    if kind == "kidnap":
+        seq = synthetic.generate_sequence(
+            nb_frames=smoke.FRAMES, height=smoke.HEIGHT, width=smoke.WIDTH, seed=smoke.KIDNAP_SEED,
+            twist_per_frame=smoke.kidnap_twists(smoke.FRAMES),
+        )
+    else:
+        seq = synthetic.generate_sequence(
+            nb_frames=smoke.FRAMES, height=smoke.HEIGHT, width=smoke.WIDTH, seed=0, twist_per_frame=smoke.TWIST
+        )
+    grays = smoke.drift_grays(seq.grays) if kind == "drift" else seq.grays
+    return grays, seq.depths, seq.poses, seq.intrinsics
+
+
+def jax_ate(kind, overrides) -> float:
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    jax.config.update("jax_platforms", "cpu")
+    from visual_odometry_rs_tpu.core.camera import Intrinsics
+    from visual_odometry_rs_tpu.eval import ate
+    from visual_odometry_rs_tpu.math.pose import Pose
+    from visual_odometry_rs_tpu.models import tracker
+
+    grays, depths, poses, intr = sequence(kind)
+    config = tracker.TrackerConfig(
+        height=smoke.HEIGHT, width=smoke.WIDTH, nb_levels=smoke.LEVELS, candidate_cap=smoke.CAP,
+        bucket_candidates=True, interp_method="gather", **overrides,
+    )
+    trk = tracker.init_tracker(
+        config, Intrinsics(*(jnp.asarray(v.numpy()) for v in intr)), 0.0, jnp.asarray(depths[0]),
+        0.0, jnp.asarray(grays[0]),
+    )
+    est = [trk.current_frame()[1]]
+    for f in range(1, len(grays)):
+        trk.track(float(f), jnp.asarray(depths[f]), float(f), jnp.asarray(grays[f]))
+        est.append(trk.current_frame()[1])
+    truth = [Pose(np.asarray(p.q.numpy()), np.asarray(p.t.numpy())) for p in poses]
+    return float(ate.ate_rmse(est, truth))
+
+
+def main(argv) -> int:
+    threading.Thread(target=_watch_memory, daemon=True).start()
+    for name in argv or list(RUNS):
+        kind, overrides = RUNS[name]
+        start = time.time()
+        value = jax_ate(kind, overrides)
+        print(json.dumps({"run": name, "jax_ate": value, "seconds": round(time.time() - start, 1)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

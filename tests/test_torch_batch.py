@@ -317,20 +317,25 @@ def test_vors_batch_cpu(tmp_path):
 
 
 def test_vors_batch_refuses_what_is_not_ported(tmp_path):
+    """Only ``--save-state``/``--resume`` (ROADMAP A10) and the sharded step
+    (A12) are left; a ring without a window and the host-recursion ``dso``
+    selector raise in the batched driver, as in the JAX package."""
     args = ["fr1", "/nonexistent/associations.txt", "--out-dir", str(tmp_path)]
     with redirect_stderr(io.StringIO()) as err:
-        for flag in (["--robust-delta", "2"], ["--relocalize", "4"], ["--brightness-model"],
-                     ["--candidate-selector", "dso_fixed"], ["--save-state", "x.npz"]):
+        for flag in (["--save-state", "x.npz"], ["--resume", "x.npz"]):
             assert vors_batch.main([*args, *flag]) == 1
         assert vors_batch.main([*args, "--cpu"]) == 1  # no such file
-    assert "ROADMAP A9" in err.getvalue() and "ROADMAP A10" in err.getvalue()
+    assert "ROADMAP A10" in err.getvalue()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             vors_batch.main(args)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="relocalize_window"):
         tbatch.batched_track_sequence(CONFIG, None, None, None, None, reloc_ring=object())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="relocalize_window"):
         tbatch.batched_init_ring(CONFIG, None)
+    dso_config = ttracker.TrackerConfig(**KW, candidate_selector="dso")
+    with pytest.raises(ValueError, match="dso"):
+        tbatch.batched_track_sequence(dso_config, None, None, None, None)
     with pytest.raises(NotImplementedError, match="A12"):
         tbatch.make_sharded_step(CONFIG, None, None)
 

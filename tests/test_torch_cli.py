@@ -10,7 +10,7 @@
 """
 
 import io
-from contextlib import redirect_stdout
+from contextlib import redirect_stderr, redirect_stdout
 from types import SimpleNamespace
 
 import jax
@@ -23,6 +23,7 @@ from visual_odometry_rs_tpu.dataset import synthetic as jsyn
 from visual_odometry_rs_tpu.dataset import tum_rgbd as jtum
 from visual_odometry_rs_tpu.eval import ate as jate
 from visual_odometry_rs_tpu_torch import interop
+from visual_odometry_rs_tpu_torch.cli import vors_batch
 from visual_odometry_rs_tpu_torch.cli import vors_track as tcli
 from visual_odometry_rs_tpu_torch.dataset import synthetic as tsyn
 from visual_odometry_rs_tpu_torch.dataset import tum_rgbd as ttum
@@ -55,6 +56,40 @@ def test_cli_matches_jax_cli(tmp_path):
         np.testing.assert_allclose(np.asarray(o.pose.t), np.asarray(r.pose.t), atol=5e-3)
     est = [seq.poses[0]] + [f.pose for f in out]
     assert jate.ate_rmse(est, seq.poses) < 5e-3
+
+
+def test_clis_run_the_option_flags(tmp_path):
+    """``vors_track`` and ``vors_batch`` on the CPU with every option flag:
+    one trajectory line per tracked frame, and the poses of the library
+    with the same configuration."""
+    seq = tsyn.generate_sequence(nb_frames=4, height=48, width=64, seed=6,
+                                 twist_per_frame=[0.02, 0.0, 0.0, 0.0, 0.0, 0.0])
+    assoc = ttum.write_sequence(str(tmp_path / "seq"), seq.grays, seq.depths, seq.timestamps)
+    options = ["--robust-delta", "10", "--brightness-model", "--candidate-selector", "dso_fixed",
+               "--dso-target", "300", "--dso-block-size", "3", "--dso-a", "0.2",
+               "--relocalize", "2", "--relocalize-energy", "400"]
+    flags = ["--cpu", "--nb-levels", "3", "--candidate-cap", "256", *options]
+    with redirect_stderr(io.StringIO()):
+        lines = _run_cli(tcli.main, ["fr1", assoc, *flags]).splitlines()
+        assert vors_batch.main(["fr1", assoc, "--out-dir", str(tmp_path / "out"), *flags]) == 0
+        assert tcli.main(["fr1", assoc, "--cpu", "--nb-levels", "3", "--candidate-selector", "dso", "--dso-a", "0.2"]) == 0
+    assert len(lines) == 3
+    assert (tmp_path / "out" / "seq.txt").read_text().splitlines() == lines  # the same poses, one lane
+    config = ttracker.TrackerConfig(
+        height=48, width=64, nb_levels=3, candidate_cap=256, depth_scale=ttum.DEPTH_SCALE,
+        idepth_variance=ttum.VARIANCE_TUM, bucket_candidates=True, robust_delta=10.0, brightness_model=True,
+        candidate_selector="dso_fixed", dso_target=300, dso_block_size=3, dso_threshold_coef_a=0.2,
+        relocalize_window=2, relocalize_energy_accept=400.0,
+    )
+    intr = ttum.scaled_intrinsics("fr1", 48, 64)
+    trk = ttracker.init_tracker(config, intr, seq.timestamps[0], seq.depths[0], seq.timestamps[0], seq.grays[0],
+                                device="cpu")
+    stamps = [a.depth_timestamp for a in ttum.load_associations(assoc)]
+    for f, line in enumerate(lines, start=1):
+        trk.track(stamps[f], seq.depths[f], stamps[f], seq.grays[f])
+        assert line == ttum.Frame(timestamp=stamps[f], pose=trk.current_frame()[1]).to_string()
+    with redirect_stderr(io.StringIO()), pytest.raises(SystemExit):  # not one of vors_batch's choices
+        vors_batch.main(["fr1", assoc, "--out-dir", str(tmp_path), "--cpu", "--candidate-selector", "dso"])
 
 
 def test_cli_missing_file_and_no_cuda():

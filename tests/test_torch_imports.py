@@ -35,12 +35,17 @@ def test_port_imports_and_cli_help_without_jax():
     modules = _modules()
     assert "visual_odometry_rs_tpu_torch.models.tracker" in modules
     assert "visual_odometry_rs_tpu_torch.parallel.batch" in modules
+    for name in ("models.relocalize", "core.candidates.dso"):
+        assert f"visual_odometry_rs_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
     assert "associations_file" in proc.stdout and "--switch-cadence" in proc.stdout
+    for flag in ("--robust-delta", "--candidate-selector", "--dso-target", "--dso-block-size", "--dso-a",
+                 "--brightness-model", "--relocalize", "--relocalize-energy"):
+        assert proc.stdout.count(flag) >= 2, flag  # in both CLIs' help
 
 
 def test_port_sources_name_no_jax():

@@ -348,3 +348,128 @@ def test_batched_tracking_is_the_streaming_tracker_on_the_card(cuda_device):
             p = trk.current_frame()[1]
             assert torch.equal(p.q, poses.q[f, b].cpu()) and torch.equal(p.t, poses.t[f, b].cpu()), (f, b)
             assert list(trk.last_nb_iters) == diags.nb_iters[f, b].tolist()
+
+
+# --- the tracker options: Huber weights, brightness, detector, lanes ---------
+
+OPTION_CASES = {
+    "huber": dict(robust_delta=10.0),
+    "brightness": dict(ab=(1.1, -6.0)),
+    "huber+brightness": dict(robust_delta=10.0, ab=(1.1, -6.0)),
+}
+
+
+@pytest.mark.parametrize("lvl", range(LEVELS))
+@pytest.mark.parametrize("option", sorted(OPTION_CASES))
+def test_option_kernels_match_twin(cuda_device, option, lvl):
+    """Each instantiation of ``residual_reduce`` against the twin with the
+    same option, with the evaluation's tolerances."""
+    _, kf, pyr1 = _keyframe(cuda_device)
+    opts = dict(OPTION_CASES[option])
+    if "ab" in opts:
+        opts["ab"] = torch.tensor(opts["ab"], device=cuda_device)
+    args = _args(kf.levels[lvl], pyr1[lvl], SMALL)
+    m, rsq, cnt = residual.residual_reduce(*args, **opts)
+    m_ref, rsq_ref, cnt_ref = residual.residual_reduce_reference(*args, **opts)
+    nparam = 8 if "ab" in opts else 6
+    assert m.shape == m_ref.shape == (nparam, nparam + 1)
+    assert float(cnt) == float(cnt_ref) > 0
+    np.testing.assert_allclose(float(rsq / cnt), float(rsq_ref / cnt_ref), rtol=1e-5)
+    scale = float(m_ref.abs().max()) + 1.0
+    np.testing.assert_allclose((m / scale).cpu().numpy(), (m_ref / scale).cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("option", sorted(OPTION_CASES))
+def test_option_solves_match_reference(cuda_device, option):
+    _, kf, pyr1 = _keyframe(cuda_device)
+    opts = OPTION_CASES[option]
+    delta = opts.get("robust_delta", 0.0)
+    start = pose.identity(device=cuda_device)
+    for lvl in range(LEVELS):
+        obs, image = kf.levels[lvl], pyr1[lvl]
+        if "ab" not in opts:
+            out = tracker.solve_level(obs, image, start, robust_delta=delta)
+            ref = tracker.solve_level_reference(obs, image, start, robust_delta=delta)
+            _assert_solves_match(out, ref)
+            continue
+        bst = tracker.BrightnessState(start, torch.tensor(opts["ab"], device=cuda_device))
+        out = tracker.solve_level_brightness(obs, image, bst, robust_delta=delta)
+        ref = tracker.solve_level_brightness_reference(obs, image, bst, robust_delta=delta)
+        assert bool(out.failed) == bool(ref.failed)
+        assert abs(int(out.nb_iter) - int(ref.nb_iter)) <= 1
+        np.testing.assert_allclose(out.state.model.pose.t.cpu().numpy(), ref.state.model.pose.t.cpu().numpy(), atol=1e-5)
+        np.testing.assert_allclose(out.state.model.ab.cpu().numpy(), ref.state.model.ab.cpu().numpy(), rtol=1e-4, atol=1e-3)
+        assert out.state.hessian.shape == (8, 8)
+
+
+@pytest.mark.parametrize("option", ["huber", "brightness", "huber+brightness"])
+def test_option_frame_matches_reference_with_detector(cuda_device, option):
+    """Six launches of the option's instantiation, the detector from the
+    last, against the Python loop and ``_eval_energy``."""
+    config, kf, pyr1 = _keyframe(cuda_device)
+    opts = OPTION_CASES[option]
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP,
+                                   robust_delta=opts.get("robust_delta", 0.0), brightness_model="ab" in opts)
+    start = pose.identity(device=cuda_device)
+    evals_before, before = residual.residual_reduce.launches, lm_solve.lm_solve_level.launches
+    out = tracker.track_frame(config, kf, pyr1, start, detector=True)
+    assert lm_solve.lm_solve_level.launches - before == LEVELS
+    assert residual.residual_reduce.launches == evals_before
+    ref = tracker.track_frame_reference(config, kf, pyr1, start, detector=True)
+    assert bool(out.failed) == bool(ref.failed) is False
+    np.testing.assert_allclose(out.model.t.cpu().numpy(), ref.model.t.cpu().numpy(), atol=1e-5)
+    np.testing.assert_allclose(out.model.q.cpu().numpy(), ref.model.q.cpu().numpy(), atol=1e-6)
+    energy, _, inside = tracker._eval_energy(kf.levels[0], pyr1[0], out.model)
+    np.testing.assert_allclose(float(out.detector[0]), float(energy), rtol=1e-4)
+    assert float(out.detector[1]) == float(inside.sum()) and float(out.detector[2]) == float(kf.levels[0].valid.sum())
+
+
+def test_image_index_and_active_lanes(cuda_device):
+    """Three keyframes tracking one shared frame through the image index,
+    the middle lane inactive: the active lanes bit-equal to one-lane frames,
+    the inactive one a pass-through, as ``track_frame_reference`` says."""
+    config, lanes, kf, pyr, start = _three_lanes(cuda_device)
+    shared = [p[:1] for p in pyr]
+    index = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    active = torch.tensor([True, False, True], device=cuda_device)
+    out = tracker.track_frame(config, kf, shared, start, detector=True, image_index=index, active=active)
+    for b in (0, 2):
+        one = tracker.track_frame(config, lanes[b][0], [p[0] for p in pyr], pose.Pose(start.q[b], start.t[b]),
+                                  detector=True)
+        assert torch.equal(out.model.t[b], one.model.t) and torch.equal(out.nb_iters[b], one.nb_iters)
+        assert torch.equal(out.detector[b], one.detector)
+    assert torch.equal(out.model.t[1], start.t[1]) and torch.equal(out.model.q[1], start.q[1])
+    assert not bool(out.failed[1]) and out.nb_iters[1].tolist() == [0] * LEVELS
+    assert bool(out.detector[1, 0].isnan()) and out.detector[1, 1:].tolist() == [0.0, 0.0]
+    ref = tracker.track_frame_reference(config, kf, shared, start, detector=True, image_index=index, active=active)
+    assert out.failed.tolist() == ref.failed.tolist()
+    np.testing.assert_allclose(out.model.t.cpu().numpy(), ref.model.t.cpu().numpy(), atol=1e-5)
+    for name, brightness, robust in (("plain", False, False), ("brightness", True, True)):
+        regs, local = lm_solve.resources(brightness=brightness, robust=robust)
+        assert 0 < regs <= 255 and local >= 0, name
+
+
+def test_ring_recovery_makes_no_host_read(cuda_device):
+    """With a ring, a steady batched frame (no check) still never waits for
+    the device: the recovery runs as inactive lanes."""
+    from visual_odometry_rs_tpu_torch.parallel import batch
+
+    seqs = [synthetic.generate_sequence(nb_frames=3, height=H, width=W, seed=s) for s in range(2)]
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP, relocalize_window=3)
+    intr = seqs[0].intrinsics.to(cuda_device)  # a copy from the host would wait
+    state = batch.batched_init_state(config, intr, np.stack([s.depths[0] for s in seqs]),
+                                     np.stack([s.grays[0] for s in seqs]), device=cuda_device)
+    ring = batch.batched_init_ring(config, state)
+    clip_d = torch.from_numpy(np.stack([np.stack([s.depths[f] for s in seqs]) for f in (1, 2)]).astype(np.int32)).to(cuda_device)
+    clip_g = torch.from_numpy(np.stack([np.stack([s.grays[f] for s in seqs]) for f in (1, 2)])).to(cuda_device)
+    kwargs = dict(switch_cadence=4, reloc_ring=ring)
+    batch.batched_track_sequence(config, intr, state, clip_d[:1], clip_g[:1], **kwargs)  # loads the kernels
+    torch.cuda.synchronize()
+    before = lm_solve.lm_solve_level.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, (_, diags), ring_out = batch.batched_track_sequence(config, intr, state, clip_d[1:], clip_g[1:], **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert lm_solve.lm_solve_level.launches - before == 2 * LEVELS  # the frame's and the recovery's
+    assert not diags.relocalized.any() and torch.equal(ring_out.count, ring.count)

@@ -24,3 +24,48 @@ def parse_level_iterations(spec, nb_levels: int):
             f"pyramid level, finest first), got {spec!r}"
         )
     return caps
+
+
+def add_option_flags(parser, selectors) -> None:
+    """The tracker-option flags of the JAX CLIs, with their defaults;
+    ``selectors`` are the ``--candidate-selector`` choices."""
+    parser.add_argument(
+        "--robust-delta", type=float, default=0.0,
+        help="Huber robust weighting threshold in intensity units (0 = reference-exact L2)",
+    )
+    parser.add_argument(
+        "--candidate-selector", choices=list(selectors), default="coarse_to_fine",
+        help="keyframe candidate picker: " + ", ".join(selectors) + " (dso: the DSO picker with "
+        "its host recursion on the block size; dso_fixed: one pass at --dso-block-size)",
+    )
+    parser.add_argument("--dso-target", type=int, default=2000,
+                        help="DSO point-count target (dso_fixed: sets the thinning ratio)")
+    parser.add_argument("--dso-block-size", type=int, default=4,
+                        help="dso_fixed: the block size (4 = the DSO paper's base)")
+    parser.add_argument("--dso-a", type=float, default=1.0,
+                        help="DSO regional threshold coefficient a in a*(mean3x3(median)+b)^2")
+    parser.add_argument(
+        "--brightness-model", action="store_true",
+        help="estimate a per-frame affine brightness (gain, bias) with the pose",
+    )
+    parser.add_argument(
+        "--relocalize", type=int, default=0, metavar="K",
+        help="keep the last K keyframes and recover a lost frame (solver failure or energy "
+        "above --relocalize-energy) against them; 0 = off",
+    )
+    parser.add_argument("--relocalize-energy", type=float, default=150.0,
+                        help="mean squared intensity above which a frame counts as lost")
+
+
+def option_fields(args) -> dict:
+    """The ``TrackerConfig`` fields of the option flags."""
+    return dict(
+        robust_delta=args.robust_delta,
+        brightness_model=args.brightness_model,
+        relocalize_window=max(0, args.relocalize),
+        relocalize_energy_accept=args.relocalize_energy,
+        candidate_selector=args.candidate_selector,
+        dso_target=args.dso_target,
+        dso_block_size=args.dso_block_size,
+        dso_threshold_coef_a=args.dso_a,
+    )

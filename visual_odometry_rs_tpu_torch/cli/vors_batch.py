@@ -11,8 +11,11 @@ read.  Each input gets its own TUM trajectory file in ``--out-dir``, named
 after the association file's parent directory (else its stem), with ``.1``,
 ``.2``, ... added to a name already taken.  Sequences may differ in length:
 a finished sequence keeps receiving its last frame and stops emitting lines.
-Pending keyframe switches, the global frame index and the warm-start carry
-cross the clip boundaries.  It runs on CUDA unless ``--cpu`` is given, and
+Pending keyframe switches, the global frame index, the warm-start carry and,
+with ``--relocalize K``, each lane's ring of K keyframes (on the device)
+cross the clip boundaries.  The tracker's options take the JAX CLI's
+defaults; ``--candidate-selector`` takes ``coarse_to_fine`` and
+``dso_fixed`` (``dso`` needs a host recursion per keyframe).  It runs on CUDA unless ``--cpu`` is given, and
 fails if CUDA is absent.  Images are decoded with PIL, one at a time.
 """
 
@@ -23,16 +26,13 @@ import os
 import sys
 
 from . import _common
+from ._common import add_option_flags, option_fields
 
 USAGE = "Usage: vors_batch [fr1|fr2|fr3|icl] associations_file... --out-dir DIR"
 
 # flags of later slices, accepted only at their defaults: the ROADMAP item
 # that ports each
-_LATER = {
-    "robust_delta": "A9", "relocalize": "A9", "relocalize_energy": "A9",
-    "brightness_model": "A9", "candidate_selector": "A9", "dso_target": "A9",
-    "dso_block_size": "A9", "dso_a": "A9", "save_state": "A10", "resume": "A10",
-}
+_LATER = {"save_state": "A10", "resume": "A10"}
 
 
 def _out_name(assoc_path: str) -> str:
@@ -93,15 +93,8 @@ def _parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--max-frames", type=int, default=0, metavar="N",
                         help="stop after the first N frames per sequence (0 = all)")
+    add_option_flags(parser, selectors=("coarse_to_fine", "dso_fixed"))
     # the flags of _LATER
-    parser.add_argument("--robust-delta", type=float, default=0.0, help=argparse.SUPPRESS)
-    parser.add_argument("--relocalize", type=int, default=0, help=argparse.SUPPRESS)
-    parser.add_argument("--relocalize-energy", type=float, default=150.0, help=argparse.SUPPRESS)
-    parser.add_argument("--brightness-model", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--candidate-selector", default="coarse_to_fine", help=argparse.SUPPRESS)
-    parser.add_argument("--dso-target", type=int, default=2000, help=argparse.SUPPRESS)
-    parser.add_argument("--dso-block-size", type=int, default=4, help=argparse.SUPPRESS)
-    parser.add_argument("--dso-a", type=float, default=1.0, help=argparse.SUPPRESS)
     parser.add_argument("--save-state", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--resume", default=None, help=argparse.SUPPRESS)
     return parser
@@ -158,6 +151,7 @@ def main(argv=None) -> int:
         candidate_cap=args.candidate_cap,
         warm_start=args.warm_start,
         level_max_iterations=level_iterations,
+        **option_fields(args),
     )
     nb_lanes = len(all_assocs)
     state = batch_mod.batched_init_state(
@@ -174,6 +168,7 @@ def main(argv=None) -> int:
         max_len = min(max_len, args.max_frames)
     last = list(first)  # (depth, gray) a finished lane keeps receiving
 
+    ring = batch_mod.batched_init_ring(config, state) if config.relocalize_window > 0 else None
     frame_idx, pending, prev = 0, None, None
     outs = [open(os.path.join(args.out_dir, n), "w") for n in names]
     try:
@@ -186,12 +181,14 @@ def main(argv=None) -> int:
                     if frame_idx + f < lengths[b]:
                         last[b] = next(loaders[b])
                     clip_d[f, b], clip_g[f, b] = last[b]
-            state, (poses, diags), pending, prev = batch_mod.batched_track_sequence(
+            state, (poses, diags), pending, prev, *rest = batch_mod.batched_track_sequence(
                 config, intrinsics, state, clip_d, clip_g,
                 switch_cadence=args.switch_cadence, switch_subbatch=args.switch_subbatch,
                 pending0=pending, frame_offset=frame_idx, return_pending=True,
-                prev_pose0=prev, return_prev=True,
+                reloc_ring=ring, prev_pose0=prev, return_prev=True,
             )
+            if ring is not None:
+                ring = rest[0]
             q, t, host = batch_mod.outputs_to_numpy(poses, diags)  # the clip's one read
             for f in range(n):
                 for b in range(nb_lanes):
@@ -201,6 +198,8 @@ def main(argv=None) -> int:
                     print(f"[{b}] Optical_flow: {host.flow[f, b]}", file=sys.stderr)
                     if host.failed[f, b]:
                         print(f"[{b}] Error at Cholesky decomposition of hessian", file=sys.stderr)
+                    if host.relocalized[f, b]:
+                        print(f"[{b}] Relocalized against keyframe ring", file=sys.stderr)
                     line = tum_rgbd.Frame(
                         timestamp=all_assocs[b][fi + 1].depth_timestamp, pose=Pose(q=q[f, b], t=t[f, b])
                     ).to_string()

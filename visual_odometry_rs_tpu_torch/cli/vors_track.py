@@ -6,6 +6,9 @@ The port of the streaming mode of ``visual_odometry_rs_tpu/cli/vors_track.py``
 (reference ``src/bin/vors_track.rs``): one TUM pose line per tracked frame
 (``timestamp tx ty tz qx qy qz qw``) on stdout, diagnostics on stderr.
 It runs on CUDA unless ``--cpu`` is given, and fails if CUDA is absent.
+The tracker's options (``--robust-delta``, ``--brightness-model``,
+``--candidate-selector``/``--dso-*``, ``--relocalize``) take the JAX CLI's
+defaults and choices; on CUDA every one of them runs in the solver kernel.
 Image decoding goes through PIL.
 """
 
@@ -15,6 +18,7 @@ import argparse
 import sys
 
 from . import _common
+from ._common import add_option_flags, option_fields
 
 USAGE = "Usage: vors_track [fr1|fr2|fr3|icl] associations_file"
 
@@ -27,6 +31,7 @@ def main(argv=None) -> int:
     parser.add_argument("--nb-levels", type=int, default=6)
     parser.add_argument("--diff-threshold", type=int, default=7)
     parser.add_argument("--candidate-cap", type=int, default=8192)
+    add_option_flags(parser, selectors=("coarse_to_fine", "dso", "dso_fixed"))
     parser.add_argument(
         "--warm-start", choices=["constant_position", "constant_velocity"],
         default="constant_position",
@@ -76,6 +81,7 @@ def main(argv=None) -> int:
         bucket_candidates=not args.no_bucket,
         warm_start=args.warm_start,
         level_max_iterations=_common.parse_level_iterations(args.level_iterations, args.nb_levels),
+        **option_fields(args),
     )
     trk = tracker_mod.init_tracker(
         config, intrinsics,
@@ -83,12 +89,16 @@ def main(argv=None) -> int:
         associations[0].color_timestamp, gray0,
         device=device,
     )
+    relocalizations = 0
     for assoc in associations[1:]:
         depth, gray = tum_rgbd.read_images(assoc)
         trk.track(assoc.depth_timestamp, depth, assoc.color_timestamp, gray)
         print(f"Optical_flow: {trk.last_flow}", file=sys.stderr)
         if trk.last_failed:
             print("Error at Cholesky decomposition of hessian", file=sys.stderr)
+        if trk.relocalizations > relocalizations:
+            relocalizations = trk.relocalizations
+            print("Relocalized against keyframe ring", file=sys.stderr)
         timestamp, pose = trk.current_frame()
         print(tum_rgbd.Frame(timestamp=timestamp, pose=pose).to_string(), flush=True)
     return 0

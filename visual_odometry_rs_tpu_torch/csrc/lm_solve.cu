@@ -4,7 +4,8 @@
 // The evaluation inside it replaces the Pallas TPU kernel `_kernel` of
 // visual_odometry_rs_tpu/ops/pallas/residual_kernel.py; the loop around it
 // is what the JAX package compiles into one device program with
-// lax.while_loop (models/tracker.py::solve_level, math/optimizer.py).
+// lax.while_loop (models/tracker.py::solve_level and
+// solve_level_brightness, math/optimizer.py).
 //
 // What bounds it on this card.  Not bytes and not arithmetic: a level is at
 // most 8192 candidates of 41 bytes and a u8 image that stays in L2.  A
@@ -13,7 +14,7 @@
 // one device->host read PER EVALUATION, all of them latency.
 //
 // What the design does about it.
-// - One persistent launch per level: evaluation, reduction, damped 6x6
+// - One persistent launch per level: evaluation, reduction, damped
 //   Cholesky solve, se3 exp, inverse-compositional update, first-order
 //   renormalisation, finiteness check and the accept/reject/lambda rule all
 //   run here, so the host neither launches nor reads anything per iteration.
@@ -36,7 +37,19 @@
 //   never wait on each other: each cluster ends when its own solve ends,
 //   where the JAX package's vmap of a while_loop runs every lane for as
 //   many iterations as the slowest.  One lane is exactly the launch of
-//   one level of one sequence.
+//   one level of one sequence.  An optional image index per lane lets
+//   several lanes read one image (relocalization solves one frame against
+//   K keyframes); an optional active flag per lane turns a lane into a
+//   pass-through that returns at once, so a recovery that only some lanes
+//   need is launched without the host reading which.
+//
+// The tracker's options are template parameters (residual_eval.cuh), so the
+// plain solve compiles to the code it had before they existed:
+// - kRobust: Huber weights in the evaluation (robust_delta);
+// - NP = 8: the affine brightness model.  The state is the pose and the
+//   gain and bias (a, b); the system is 8x8; a step updates the pose
+//   inverse-compositionally with delta[0:6] and adds delta[6:8] to (a, b);
+//   (a, b) hand on to the next level with the pose and freeze with it.
 //
 // Control flow, as math/optimizer.py and models/tracker.py::solve_level:
 // evaluate at the start pose with lambda = lm_coef_init; then, counting
@@ -48,23 +61,34 @@
 // old - new > energy_tol; nb_iter > max_iterations stops either way; the
 // hard bound is max_iterations + 3.
 //
-// Record written by block 0 (72 floats; counts are exact small integers):
-//   [0:7]   pose handed to the next level: the accepted pose, or the input
-//           pose if this or an earlier level failed
-//   [7]     1 if this or an earlier level failed, else 0
-//   [8:15]  the accepted pose of this solve
-//   [15]    its energy     [16] lambda     [17] nb_iter
-//   [18]    evaluations    [19] 1 if this solve failed
-//   [20:62] [H | g] at the accepted pose, 6x7 row-major
-//   [62]    mean optical flow |du| + |dv| of the `flow` candidates under the
-//           pose handed on (the keyframe criterion of
-//           inverse_compositional.rs:211-222; the tracker asks for it in the
-//           finest level's launch), 0 when none are given
-//   [64:69] clock cycles seen by thread 0 of block 0: loading the candidates;
-//           then summed over the evaluations: the candidates' sums, the
-//           reduction, the scalar step; and the whole kernel.  The tools that
-//           a kernel's inside is usually read with do not run everywhere;
-//           these five clock reads per iteration always do.
+// Record written by block 0 (128 floats; counts are exact small integers).
+// Its first kState floats are the next level's state_in:
+//   [0:7]    pose handed to the next level: the accepted pose, or the input
+//            pose if this or an earlier level failed
+//   [7]      1 if this or an earlier level failed, else 0
+//   [8:10]   brightness (a, b) handed on, frozen with the pose (the plain
+//            solve passes its input through)
+//   [10:17]  the accepted pose of this solve   [17:19] its (a, b)
+//   [19]     its energy     [20] lambda     [21] nb_iter
+//   [22]     evaluations    [23] 1 if this solve failed
+//   [24:24+NP(NP+1)] [H | g] at the accepted state, NP x (NP+1) row-major
+//            (6x7 in [24:66], 8x9 in [24:96])
+//   [96]     mean optical flow |du| + |dv| of the `flow` candidates under the
+//            pose handed on (the keyframe criterion of
+//            inverse_compositional.rs:211-222; the tracker asks for it in the
+//            finest level's launch), 0 when none are given
+//   [97:100] the lost-frame detector, when asked for: the plain energy
+//            sum r^2 / count of this level's candidates under the pose
+//            handed on (unweighted, no brightness: the JAX package's
+//            _eval_energy), its inside count and the count of valid
+//            candidates; 0 otherwise
+//   [100:105] clock cycles seen by thread 0 of block 0: loading the
+//            candidates; then summed over the evaluations: the candidates'
+//            sums, the reduction, the scalar step; and the whole kernel.  The
+//            tools that a kernel's inside is usually read with do not run
+//            everywhere; these five clock reads per iteration always do.
+// An inactive lane writes [0:10] and the accepted state from its state_in,
+// NaN energies and flow, and zero counts.
 
 #include "residual_eval.cuh"
 
@@ -74,7 +98,10 @@ namespace {
 
 using namespace vors;
 
-constexpr int kRecord = 72;
+constexpr int kRecord = 128;
+constexpr int kState = 10;
+constexpr int kAccepted = 10, kEnergy = 19, kNormal = 24, kFlow = 96, kDetector = 97,
+              kCycles = 100;
 
 // The candidates whose mean optical flow the launch reports: the tracker's
 // coarsest level.
@@ -85,11 +112,13 @@ struct FlowLevel {
   int n;
 };
 
+template <int NP>
 struct LMState {
   Motion model;
+  float ab[2];
   float energy;
-  float h[21];  // upper triangle
-  float g[6];
+  float h[tri_size(NP)];  // upper triangle
+  float g[NP];
   float lm;
 };
 
@@ -98,45 +127,46 @@ struct LMState {
 // One division per column: the column and both substitutions multiply by
 // the reciprocal of the diagonal entry, because a division is a long
 // dependent chain and this thread runs alone.
-__device__ void damped_solve(const float (&h)[21], const float (&g)[6], float lm,
-                             float (&delta)[6]) {
-  float l[6][6];
-  float inv[6];  // 1 / l[j][j]
+template <int NP>
+__device__ void damped_solve(const float (&h)[tri_size(NP)], const float (&g)[NP], float lm,
+                             float (&delta)[NP]) {
+  float l[NP][NP];
+  float inv[NP];  // 1 / l[j][j]
   bool ok = true;
   const float damp = 1.0f + lm;
 #pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    float d = h[upper_index(j, j)] * damp;
+  for (int j = 0; j < NP; ++j) {
+    float d = h[upper_index<NP>(j, j)] * damp;
 #pragma unroll
     for (int k = 0; k < j; ++k) d -= l[j][k] * l[j][k];
     ok = ok && d > 0.0f && d < INFINITY;
     inv[j] = 1.0f / sqrtf(d);
 #pragma unroll
-    for (int i = j + 1; i < 6; ++i) {
-      float v = h[upper_index(j, i)];
+    for (int i = j + 1; i < NP; ++i) {
+      float v = h[upper_index<NP>(j, i)];
 #pragma unroll
       for (int k = 0; k < j; ++k) v -= l[i][k] * l[j][k];
       l[i][j] = v * inv[j];
     }
   }
-  float y[6];
+  float y[NP];
 #pragma unroll
-  for (int i = 0; i < 6; ++i) {
+  for (int i = 0; i < NP; ++i) {
     float v = g[i];
 #pragma unroll
     for (int k = 0; k < i; ++k) v -= l[i][k] * y[k];
     y[i] = v * inv[i];
   }
 #pragma unroll
-  for (int i = 5; i >= 0; --i) {
+  for (int i = NP - 1; i >= 0; --i) {
     float v = y[i];
 #pragma unroll
-    for (int k = i + 1; k < 6; ++k) v -= l[k][i] * delta[k];
+    for (int k = i + 1; k < NP; ++k) v -= l[k][i] * delta[k];
     delta[i] = v * inv[i];
   }
   if (!ok) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) delta[i] = NAN;
+    for (int i = 0; i < NP; ++i) delta[i] = NAN;
   }
 }
 
@@ -156,8 +186,10 @@ __device__ __forceinline__ Vec3 quat_rotate(float w, const Vec3& u, const Vec3& 
   return {v.x + w * tv.x + utv.x, v.y + w * tv.y + utv.y, v.z + w * tv.z + utv.z};
 }
 
-// se3 exp of the twist [v, w] (math/se3.py::exp), Taylor below theta^2 < 1e-4.
-__device__ Motion se3_exp(const float (&xi)[6]) {
+// se3 exp of the twist [v, w] = xi[0:6] (math/se3.py::exp), Taylor below
+// theta^2 < 1e-4.
+template <int N>
+__device__ Motion se3_exp(const float (&xi)[N]) {
   const float vx = xi[0], vy = xi[1], vz = xi[2];
   const float wx = xi[3], wy = xi[4], wz = xi[5];
   const float theta_2 = wx * wx + wy * wy + wz * wz;
@@ -195,9 +227,10 @@ __device__ Motion se3_exp(const float (&xi)[6]) {
   return m;
 }
 
-// renormalize_first_order(compose(model, inverse(exp(delta)))): the
+// renormalize_first_order(compose(model, inverse(exp(delta[0:6])))): the
 // inverse-compositional update (lm_optimizer.rs:195-209).
-__device__ Motion lm_step(const Motion& model, const float (&delta)[6]) {
+template <int N>
+__device__ Motion lm_step(const Motion& model, const float (&delta)[N]) {
   const Motion e = se3_exp(delta);
   // inverse of e
   const Vec3 ui = {-e.qx, -e.qy, -e.qz};
@@ -230,42 +263,92 @@ __device__ __forceinline__ Motion load_motion(const float* src) {
   return {src[0], src[1], src[2], src[3], src[4], src[5], src[6]};
 }
 
-__device__ void write_record(float* record, const Motion& handed_on, bool frozen,
-                             const LMState& state, int nb_iter, int nb_evals, bool failed,
-                             float flow, const unsigned (&cycles)[5]) {
+template <int NP>
+__device__ void write_record(float* record, const Motion& handed_on, const float (&handed_ab)[2],
+                             bool frozen, const LMState<NP>& state, int nb_iter, int nb_evals,
+                             bool failed, float flow, const float (&detector)[3],
+                             const unsigned (&cycles)[5]) {
   store_motion(record, handed_on);
   record[7] = frozen ? 1.0f : 0.0f;
-  store_motion(record + 8, state.model);
-  record[15] = state.energy;
-  record[16] = state.lm;
-  record[17] = (float)nb_iter;
-  record[18] = (float)nb_evals;
-  record[19] = failed ? 1.0f : 0.0f;
+  record[8] = handed_ab[0];
+  record[9] = handed_ab[1];
+  store_motion(record + kAccepted, state.model);
+  record[kAccepted + 7] = state.ab[0];
+  record[kAccepted + 8] = state.ab[1];
+  record[kEnergy] = state.energy;
+  record[kEnergy + 1] = state.lm;
+  record[kEnergy + 2] = (float)nb_iter;
+  record[kEnergy + 3] = (float)nb_evals;
+  record[kEnergy + 4] = failed ? 1.0f : 0.0f;
 #pragma unroll
-  for (int row = 0; row < 6; ++row) {
+  for (int row = 0; row < NP; ++row) {
 #pragma unroll
-    for (int col = 0; col < 6; ++col) {
-      record[20 + 7 * row + col] =
-          state.h[row < col ? upper_index(row, col) : upper_index(col, row)];
+    for (int col = 0; col < NP; ++col) {
+      record[kNormal + (NP + 1) * row + col] =
+          state.h[row < col ? upper_index<NP>(row, col) : upper_index<NP>(col, row)];
     }
-    record[20 + 7 * row + 6] = state.g[row];
+    record[kNormal + (NP + 1) * row + NP] = state.g[row];
   }
-  record[62] = flow;
-  record[63] = 0.0f;
 #pragma unroll
-  for (int t = 0; t < 5; ++t) record[64 + t] = (float)cycles[t];
+  for (int t = kNormal + NP * (NP + 1); t < kFlow; ++t) record[t] = 0.0f;
+  record[kFlow] = flow;
 #pragma unroll
-  for (int t = 69; t < kRecord; ++t) record[t] = 0.0f;
+  for (int t = 0; t < 3; ++t) record[kDetector + t] = detector[t];
+#pragma unroll
+  for (int t = 0; t < 5; ++t) record[kCycles + t] = (float)cycles[t];
+#pragma unroll
+  for (int t = kCycles + 5; t < kRecord; ++t) record[t] = 0.0f;
+}
+
+// The record of a lane that does not run: its input handed on unchanged.
+__device__ void write_passthrough(float* record, const float* state_in) {
+#pragma unroll
+  for (int t = 0; t < kState; ++t) record[t] = state_in[t];
+#pragma unroll
+  for (int t = 0; t < 7; ++t) record[kAccepted + t] = state_in[t];
+  record[kAccepted + 7] = state_in[8];
+  record[kAccepted + 8] = state_in[9];
+  record[kEnergy] = NAN;
+#pragma unroll
+  for (int t = kEnergy + 1; t < kFlow; ++t) record[t] = 0.0f;
+  record[kFlow] = NAN;
+  record[kDetector] = NAN;
+#pragma unroll
+  for (int t = kDetector + 1; t < kRecord; ++t) record[t] = 0.0f;
+}
+
+// Adds `x` over the block (shuffles, then the warps in index order), for
+// one block in a fixed order; every thread gets the sums.  The caller has
+// passed a __syncthreads() since the last use of sh.warp_sums.
+template <int N, int S>
+__device__ __forceinline__ void block_sum(float (&x)[N], ReduceShared<S>& sh) {
+  static_assert(N <= S, "the warp sums hold N values");
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) x[t] += __shfl_down_sync(0xffffffffu, x[t], off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int t = 0; t < N; ++t) sh.warp_sums[threadIdx.x >> 5][t] = x[t];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < N; ++t) {
+    x[t] = 0.0f;
+    for (int w = 0; w < kWarps; ++w) x[t] += sh.warp_sums[w][t];
+  }
 }
 
 // sum(|x - u| + |y - v|) * valid / sum(valid) over the flow candidates, by
 // one block in a fixed order.  A padding candidate (idepth 0) warps to NaN
 // and NaN * 0 is NaN, so a level with padding reports NaN, which never
 // triggers a keyframe switch: the behaviour of the JAX package, kept.
-__device__ float mean_flow(const FlowLevel& fl, const Motion& m, ReduceShared& sh) {
+template <int S>
+__device__ float mean_flow(const FlowLevel& fl, const Motion& m, ReduceShared<S>& sh) {
   const Camera k = {fl.intrinsics[0], fl.intrinsics[1], fl.intrinsics[2], fl.intrinsics[3],
                     fl.intrinsics[4]};
-  float flow = 0.0f, count = 0.0f;
+  float sums[2] = {0.0f, 0.0f};  // flow, count
   for (int i = threadIdx.x; i < fl.n; i += kThreads) {
     const float x = fl.xs[i], y = fl.ys[i];
     const float depth = 1.0f / fl.idepth[i];
@@ -274,33 +357,44 @@ __device__ float mean_flow(const FlowLevel& fl, const Motion& m, ReduceShared& s
     float u, v;
     warp_point(px, py, depth, m, k, u, v);
     const float validf = fl.valid[i] != 0 ? 1.0f : 0.0f;
-    flow += (fabsf(x - u) + fabsf(y - v)) * validf;
-    count += validf;
+    sums[0] += (fabsf(x - u) + fabsf(y - v)) * validf;
+    sums[1] += validf;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    flow += __shfl_down_sync(0xffffffffu, flow, off);
-    count += __shfl_down_sync(0xffffffffu, count, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    sh.warp_sums[threadIdx.x >> 5][0] = flow;
-    sh.warp_sums[threadIdx.x >> 5][1] = count;
-  }
-  __syncthreads();
-  flow = 0.0f;
-  count = 0.0f;
-  for (int w = 0; w < kWarps; ++w) {
-    flow += sh.warp_sums[w][0];
-    count += sh.warp_sums[w][1];
-  }
-  return flow / count;
+  block_sum(sums, sh);
+  return sums[0] / sums[1];
 }
 
-// Moves the pointers of `lv` and `flow` to lane `lane`: lanes are laid out
-// one after another, (lanes, h, w) images and (lanes, n, ...) candidates.
-__device__ __forceinline__ void to_lane(int lane, Level& lv, FlowLevel& flow) {
+// The lost-frame detector: the plain energy of the level under `m` (sum of
+// r^2 over the inside candidates / their count, NaN when none is inside),
+// the inside count and the valid count, by one block in a fixed order.
+template <int S>
+__device__ void detector_sums(const Level& lv, const Camera& k, const Motion& m,
+                              ReduceShared<S>& sh, float (&out)[3]) {
+  float sums[3] = {0.0f, 0.0f, 0.0f};  // sum r^2, inside, valid
+  for (int i = threadIdx.x; i < lv.n; i += kThreads) {
+    const Candidate c = load_candidate(lv, k, i);
+    if (!c.valid) continue;
+    sums[2] += 1.0f;
+    float val;
+    if (sample(c, m, k, lv, val)) {
+      const float r = val - c.tmpl;
+      sums[0] += r * r;
+      sums[1] += 1.0f;
+    }
+  }
+  __syncthreads();  // the flow's reads of the warp sums are done
+  block_sum(sums, sh);
+  out[0] = sums[0] / sums[1];
+  out[1] = sums[1];
+  out[2] = sums[2];
+}
+
+// Moves the pointers of `lv` and `flow` to lane `lane`, whose image is
+// image `image` of the launch: lanes are laid out one after another,
+// (images, h, w) images and (lanes, n, ...) candidates.
+__device__ __forceinline__ void to_lane(int lane, int image, Level& lv, FlowLevel& flow) {
   const size_t n = (size_t)lane * lv.n;
-  lv.img += (size_t)lane * lv.height * lv.width;
+  lv.img += (size_t)image * lv.height * lv.width;
   lv.xs += n;
   lv.ys += n;
   lv.idepth += n;
@@ -314,17 +408,26 @@ __device__ __forceinline__ void to_lane(int lane, Level& lv, FlowLevel& flow) {
   flow.valid += fn;
 }
 
+template <int NP, bool kRobust>
 __global__ void __launch_bounds__(kThreads)
 lm_solve_level_kernel(Level lv, const float* __restrict__ intrinsics,
                       const float* __restrict__ state_in, int state_stride, float lm_coef_init,
-                      int max_iterations, float energy_tol, FlowLevel flow_level,
-                      float* __restrict__ record) {
+                      int max_iterations, float energy_tol, float robust_delta,
+                      FlowLevel flow_level, int detector, const int* __restrict__ image_index,
+                      const uint8_t* __restrict__ active, float* __restrict__ record) {
+  constexpr int S = sum_count(NP);
+  constexpr int kTri = tri_size(NP);
   // a lane's state is `state_stride` floats after the previous lane's
-  to_lane(blockIdx.y, lv, flow_level);
-  state_in += (size_t)blockIdx.y * state_stride;
-  record += (size_t)blockIdx.y * kRecord;
-  __shared__ ReduceShared sh;
-  __shared__ float sh_pose[7];  // the pose to evaluate next
+  const int lane = blockIdx.y;
+  to_lane(lane, image_index != nullptr ? image_index[lane] : lane, lv, flow_level);
+  state_in += (size_t)lane * state_stride;
+  record += (size_t)lane * kRecord;
+  if (active != nullptr && active[lane] == 0) {  // the whole cluster leaves together
+    if (blockIdx.x == 0 && threadIdx.x == 0) write_passthrough(record, state_in);
+    return;
+  }
+  __shared__ ReduceShared<S> sh;
+  __shared__ float sh_pose[9];  // the pose and (a, b) to evaluate next
   __shared__ int sh_go;         // 1: evaluate sh_pose, 0: the solve has ended
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -334,25 +437,32 @@ lm_solve_level_kernel(Level lv, const float* __restrict__ intrinsics,
   const unsigned t_start = clock();
   unsigned cycles[5] = {0, 0, 0, 0, 0};  // load, sums, reduce, scalar, kernel
   const Camera k = {intrinsics[0], intrinsics[1], intrinsics[2], intrinsics[3], intrinsics[4]};
-  Candidate cache[kCached];
+  Candidate cache[cached_count(NP, kRobust)];
   load_cached(lv, k, rank, nranks, cache);
   cycles[0] = clock() - t_start;
 
   // the scalar state lives in thread 0 of every block
-  LMState state;
+  LMState<NP> state;
   Motion candidate = load_motion(state_in);
+  float candidate_ab[2] = {state_in[8], state_in[9]};
   const Motion model_in = candidate;
+  const float ab_in[2] = {candidate_ab[0], candidate_ab[1]};
   const bool failed_in = state_in[7] != 0.0f;
   int nb_iter = 0, nb_evals = 0;
   bool failed = false;
-  if (scalar_thread) store_motion(sh_pose, candidate);
+  if (scalar_thread) {
+    store_motion(sh_pose, candidate);
+    sh_pose[7] = candidate_ab[0];
+    sh_pose[8] = candidate_ab[1];
+  }
   __syncthreads();
 
   for (int parity = 0;; parity ^= 1) {
     const unsigned t_eval = clock();
     const Motion m = load_motion(sh_pose);
-    float s[kSums];
-    thread_sums(lv, k, m, cache, rank, nranks, s);
+    const Photometric ph = {sh_pose[7], sh_pose[8], robust_delta};
+    float s[S];
+    thread_sums<NP, kRobust>(lv, k, m, ph, cache, rank, nranks, s);
     const unsigned t_sums = clock();
     cluster_reduce(s, sh, parity, cluster);
     const unsigned t_reduced = clock();
@@ -360,7 +470,7 @@ lm_solve_level_kernel(Level lv, const float* __restrict__ intrinsics,
     cycles[2] += t_reduced - t_sums;
 
     if (scalar_thread) {
-      const float new_energy = sh.total[27] / sh.total[28];  // NaN when nothing is inside
+      const float new_energy = sh.total[kTri + NP] / sh.total[kTri + NP + 1];  // NaN when nothing is inside
       bool accept = true, cont = true;
       if (nb_evals == 0) {
         state.lm = lm_coef_init;
@@ -374,20 +484,30 @@ lm_solve_level_kernel(Level lv, const float* __restrict__ intrinsics,
       ++nb_evals;
       if (accept) {
         state.model = candidate;
+        state.ab[0] = candidate_ab[0];
+        state.ab[1] = candidate_ab[1];
         state.energy = new_energy;
 #pragma unroll
-        for (int t = 0; t < 21; ++t) state.h[t] = sh.total[t];
+        for (int t = 0; t < kTri; ++t) state.h[t] = sh.total[t];
 #pragma unroll
-        for (int t = 0; t < 6; ++t) state.g[t] = sh.total[21 + t];
+        for (int t = 0; t < NP; ++t) state.g[t] = sh.total[kTri + t];
       }
       int go = 0;
       if (cont && nb_iter < max_iterations + 3) {
         ++nb_iter;
-        float delta[6];
-        damped_solve(state.h, state.g, state.lm, delta);
+        float delta[NP];
+        damped_solve<NP>(state.h, state.g, state.lm, delta);
         candidate = lm_step(state.model, delta);
-        if (all_finite(candidate)) {
+        bool finite = all_finite(candidate);
+        if constexpr (NP == 8) {
+          candidate_ab[0] = state.ab[0] + delta[6];
+          candidate_ab[1] = state.ab[1] + delta[7];
+          finite = finite && isfinite(candidate_ab[0]) && isfinite(candidate_ab[1]);
+        }
+        if (finite) {
           store_motion(sh_pose, candidate);
+          sh_pose[7] = candidate_ab[0];
+          sh_pose[8] = candidate_ab[1];
           go = 1;
         } else {
           failed = true;
@@ -403,16 +523,57 @@ lm_solve_level_kernel(Level lv, const float* __restrict__ intrinsics,
   if (rank == 0) {
     // the pose handed on, known to thread 0, goes to the block for the flow
     const bool frozen = failed_in || failed;
-    if (scalar_thread) store_motion(sh_pose, frozen ? model_in : state.model);
+    if (scalar_thread) {
+      store_motion(sh_pose, frozen ? model_in : state.model);
+      sh_pose[7] = frozen ? ab_in[0] : state.ab[0];
+      sh_pose[8] = frozen ? ab_in[1] : state.ab[1];
+    }
     __syncthreads();
     const Motion handed_on = load_motion(sh_pose);
+    const float handed_ab[2] = {sh_pose[7], sh_pose[8]};
     const float flow = flow_level.n > 0 ? mean_flow(flow_level, handed_on, sh) : 0.0f;
+    float det[3] = {0.0f, 0.0f, 0.0f};
+    if (detector) detector_sums(lv, k, handed_on, sh, det);
     if (scalar_thread) {
       cycles[4] = clock() - t_start;
-      write_record(record, handed_on, frozen, state, nb_iter, nb_evals, failed, flow, cycles);
+      write_record(record, handed_on, handed_ab, frozen, state, nb_iter, nb_evals, failed, flow,
+                   det, cycles);
     }
   }
   cluster.sync();  // no block leaves while its sums may still be read
+}
+
+struct SolveArgs {
+  Level lv;
+  const float* intrinsics;
+  const float* state_in;
+  int state_stride;
+  float lm_coef_init;
+  int max_iterations;
+  float energy_tol;
+  float robust_delta;
+  FlowLevel flow;
+  int detector;
+  const int* image_index;
+  const uint8_t* active;
+  float* record;
+};
+
+template <int NP, bool kRobust>
+cudaError_t launch(const SolveArgs& a, int cluster, int lanes, cudaStream_t stream) {
+  return launch_cluster(lm_solve_level_kernel<NP, kRobust>, cluster, lanes, stream, a.lv,
+                        a.intrinsics, a.state_in, a.state_stride, a.lm_coef_init,
+                        a.max_iterations, a.energy_tol, a.robust_delta, a.flow, a.detector,
+                        a.image_index, a.active, a.record);
+}
+
+// The instantiation for the options: `fn` called with the kernel.
+template <typename Fn>
+int with_kernel(int brightness, int robust, Fn fn) {
+  if (brightness) {
+    return robust ? fn(lm_solve_level_kernel<8, true>) : fn(lm_solve_level_kernel<8, false>);
+  }
+  return robust ? fn(lm_solve_level_kernel<6, true>) : fn(lm_solve_level_kernel<6, false>);
 }
 
 }  // namespace
@@ -420,45 +581,75 @@ lm_solve_level_kernel(Level lv, const float* __restrict__ intrinsics,
 extern "C" {
 
 int vors_lm_record_size() { return kRecord; }
+int vors_lm_state_size() { return kState; }
 
 // One launch on `stream` as `lanes` clusters of `cluster` (1, 2, 4 or 8)
 // blocks, one cluster per lane: the LM solve of one level of every lane from
-// the pose in its `state_in` (8 floats: pose, failed-so-far flag; lane b's
-// at state_in + b * state_stride) into its `record` (72 floats, lane after
-// lane); with flow_n > 0 also the mean optical flow of the lane's flow
-// candidates.  Images, candidates and flow candidates are laid out lane
-// after lane; the intrinsics are shared.  Returns the CUDA error of the
-// launch (0 = success).
+// the state in its `state_in` (10 floats: pose, failed-so-far flag, (a, b);
+// lane b's at state_in + b * state_stride) into its `record` (128 floats,
+// lane after lane).  robust_delta > 0: Huber weights; brightness != 0: the
+// 8-parameter solve over the pose and (a, b).  With flow_n > 0 also the mean
+// optical flow of the lane's flow candidates; with detector != 0 the plain
+// energy, inside and valid counts of the level under the pose handed on.
+// Candidates and flow candidates are laid out lane after lane; lane b reads
+// image image_index[b] (b when image_index is null) of the (images, h, w)
+// array; a lane whose active[b] is 0 only passes its state through (all
+// lanes run when active is null); the intrinsics are shared.  Returns the
+// CUDA error of the launch (0 = success).
 int vors_lm_solve_level(const void* img, int height, int width, const void* xs, const void* ys,
                         const void* idepth, const void* tmpl, const void* valid,
                         const void* jac, int n, const void* intrinsics, const void* state_in,
                         int state_stride, float lm_coef_init, int max_iterations,
-                        float energy_tol, const void* flow_xs, const void* flow_ys,
-                        const void* flow_idepth, const void* flow_valid,
-                        const void* flow_intrinsics, int flow_n, void* record, int cluster,
-                        int lanes, void* stream) {
-  const Level lv = {static_cast<const uint8_t*>(img), height, width,
-                    static_cast<const float*>(xs), static_cast<const float*>(ys),
-                    static_cast<const float*>(idepth), static_cast<const float*>(tmpl),
-                    static_cast<const uint8_t*>(valid), static_cast<const float*>(jac), n};
-  const FlowLevel flow = {static_cast<const float*>(flow_xs), static_cast<const float*>(flow_ys),
-                          static_cast<const float*>(flow_idepth),
-                          static_cast<const uint8_t*>(flow_valid),
-                          static_cast<const float*>(flow_intrinsics), flow_n};
-  return static_cast<int>(launch_cluster(
-      lm_solve_level_kernel, cluster, lanes, static_cast<cudaStream_t>(stream), lv,
-      static_cast<const float*>(intrinsics), static_cast<const float*>(state_in), state_stride,
-      lm_coef_init, max_iterations, energy_tol, flow, static_cast<float*>(record)));
+                        float energy_tol, float robust_delta, int brightness,
+                        const void* flow_xs, const void* flow_ys, const void* flow_idepth,
+                        const void* flow_valid, const void* flow_intrinsics, int flow_n,
+                        int detector, const void* image_index, const void* active,
+                        void* record, int cluster, int lanes, void* stream) {
+  SolveArgs a;
+  a.lv = {static_cast<const uint8_t*>(img), height, width,
+          static_cast<const float*>(xs), static_cast<const float*>(ys),
+          static_cast<const float*>(idepth), static_cast<const float*>(tmpl),
+          static_cast<const uint8_t*>(valid), static_cast<const float*>(jac), n};
+  a.intrinsics = static_cast<const float*>(intrinsics);
+  a.state_in = static_cast<const float*>(state_in);
+  a.state_stride = state_stride;
+  a.lm_coef_init = lm_coef_init;
+  a.max_iterations = max_iterations;
+  a.energy_tol = energy_tol;
+  a.robust_delta = robust_delta;
+  a.flow = {static_cast<const float*>(flow_xs), static_cast<const float*>(flow_ys),
+            static_cast<const float*>(flow_idepth), static_cast<const uint8_t*>(flow_valid),
+            static_cast<const float*>(flow_intrinsics), flow_n};
+  a.detector = detector;
+  a.image_index = static_cast<const int*>(image_index);
+  a.active = static_cast<const uint8_t*>(active);
+  a.record = static_cast<float*>(record);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool robust = robust_delta > 0.0f;
+  cudaError_t err;
+  if (brightness) {
+    err = robust ? launch<8, true>(a, cluster, lanes, s) : launch<8, false>(a, cluster, lanes, s);
+  } else {
+    err = robust ? launch<6, true>(a, cluster, lanes, s) : launch<6, false>(a, cluster, lanes, s);
+  }
+  return static_cast<int>(err);
 }
 
-// How many clusters of `cluster` blocks of this kernel the card holds at
-// once (cudaOccupancyMaxActiveClusters), into *count; returns the CUDA error.
-int vors_lm_max_active_clusters(int cluster, int* count) {
+// How many clusters of `cluster` blocks of the instantiation for the options
+// the card holds at once (cudaOccupancyMaxActiveClusters), into *count;
+// returns the CUDA error.
+int vors_lm_max_active_clusters(int cluster, int brightness, int robust, int* count) {
   if (!valid_cluster(cluster)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute attribute;
-  const cudaLaunchConfig_t config = cluster_config(cluster, 1, nullptr, attribute);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(count, lm_solve_level_kernel, &config));
+  return with_kernel(brightness, robust, [&](auto kernel) {
+    cudaLaunchAttribute attribute;
+    const cudaLaunchConfig_t config = cluster_config(cluster, 1, nullptr, attribute);
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(count, kernel, &config));
+  });
+}
+
+// Registers and local bytes of one instantiation into regs[0], regs[1].
+int vors_lm_solve_resources(int brightness, int robust, int* regs) {
+  return with_kernel(brightness, robust, [&](auto kernel) { return kernel_resources(kernel, regs); });
 }
 
 }  // extern "C"

@@ -10,7 +10,9 @@ imported here.
 A batched JAX ``TrackState`` (``jax.vmap`` of ``init_state``) carries the
 lane axis on every leaf, the intrinsics included; the port's batched state
 shares one set of intrinsics, so ``track_state_from_numpy`` checks that the
-lanes agree and ``track_state_to_numpy`` repeats them per lane.
+lanes agree and ``track_state_to_numpy`` repeats them per lane.  The same
+holds for a ``RelocRing`` (``reloc_ring_from_numpy``/``reloc_ring_to_numpy``),
+whose keyframe leaves carry a (B, R) lead.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from .core.camera import Intrinsics
 from .math.pose import Pose
 from .models.tracker import KeyframeData, LevelObs
-from .parallel.batch import TrackState
+from .parallel.batch import RelocRing, TrackState
 from .utils.types import to_numpy
 
 _FLOAT_FIELDS = ("xs", "ys", "idepth", "tmpl_vals", "jacobians")
@@ -79,14 +81,27 @@ def _shared_intrinsics(k) -> Intrinsics:
     return Intrinsics(*values)
 
 
+def _keyframe_shared_from_numpy(kf, device) -> KeyframeData:
+    return KeyframeData(levels=tuple(
+        level_from_numpy(obs._replace(intrinsics=_shared_intrinsics(obs.intrinsics)), device)
+        for obs in kf.levels
+    ))
+
+
+def _keyframe_to_numpy_per_lane(kf: KeyframeData, lead) -> KeyframeData:
+    levels = []
+    for obs in kf.levels:
+        out = level_to_numpy(obs)
+        k = Intrinsics(*(np.broadcast_to(v, lead).copy() for v in out.intrinsics))
+        levels.append(out._replace(intrinsics=k))
+    return KeyframeData(levels=tuple(levels))
+
+
 def track_state_from_numpy(state, device="cpu") -> TrackState:
     """A (batched) JAX ``TrackState`` of numpy leaves → the port's state."""
-    kf = KeyframeData(levels=tuple(
-        level_from_numpy(obs._replace(intrinsics=_shared_intrinsics(obs.intrinsics)), device)
-        for obs in state.kf.levels
-    ))
     return TrackState(
-        kf=kf, keyframe_pose=pose_from_numpy(state.keyframe_pose, device),
+        kf=_keyframe_shared_from_numpy(state.kf, device),
+        keyframe_pose=pose_from_numpy(state.keyframe_pose, device),
         current_pose=pose_from_numpy(state.current_pose, device),
     )
 
@@ -95,13 +110,28 @@ def track_state_to_numpy(state: TrackState) -> TrackState:
     """The port's state as numpy, laid out as the JAX package's: with a lane
     axis the intrinsics are repeated per lane."""
     lead = tuple(state.current_pose.q.shape[:-1])
-    levels = []
-    for obs in state.kf.levels:
-        out = level_to_numpy(obs)
-        k = Intrinsics(*(np.broadcast_to(v, lead).copy() for v in out.intrinsics))
-        levels.append(out._replace(intrinsics=k))
     return TrackState(
-        kf=KeyframeData(levels=tuple(levels)),
+        kf=_keyframe_to_numpy_per_lane(state.kf, lead),
         keyframe_pose=pose_to_numpy(state.keyframe_pose),
         current_pose=pose_to_numpy(state.current_pose),
+    )
+
+
+def reloc_ring_from_numpy(ring, device="cpu") -> RelocRing:
+    """A JAX ``RelocRing`` of numpy leaves → the port's ring."""
+    return RelocRing(
+        kf=_keyframe_shared_from_numpy(ring.kf, device),
+        pose_q=_f32(ring.pose_q, device), pose_t=_f32(ring.pose_t, device),
+        count=torch.as_tensor(np.array(ring.count, np.int32), device=device),
+        head=torch.as_tensor(np.array(ring.head, np.int32), device=device),
+    )
+
+
+def reloc_ring_to_numpy(ring: RelocRing) -> RelocRing:
+    """The port's ring as numpy, laid out as the JAX package's: the
+    intrinsics repeated per lane and slot."""
+    return RelocRing(
+        kf=_keyframe_to_numpy_per_lane(ring.kf, tuple(ring.pose_q.shape[:2])),
+        pose_q=to_numpy(ring.pose_q), pose_t=to_numpy(ring.pose_t),
+        count=to_numpy(ring.count), head=to_numpy(ring.head),
     )

@@ -24,10 +24,20 @@ scatter.
 precompute runs one set of tensor operations for all lanes, and on a GPU
 ``track_frame`` is still six launches, each solving one level for every
 lane.  The intrinsics are shared by all lanes.
+
+The tracker's options (the JAX package's ``TrackerConfig`` fields of the
+same names) run in the same launches: Huber weights (``robust_delta``) and
+the affine brightness model (``brightness_model``: the pose and a per-frame
+gain and bias solved together) are instantiations of the solver kernel; the
+lost-frame detector of relocalization (``relocalize_window``) is computed by
+the finest level's launch; the DSO selectors (``candidate_selector``) change
+only which pixels the keyframe precompute keeps.  Each has a plain version
+on the CPU path, and nothing on the CUDA path falls back to it.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import lru_cache
 from typing import List, NamedTuple, Tuple
@@ -39,6 +49,7 @@ from ..core import camera as camera_mod
 from ..core import inverse_depth as idepth_mod
 from ..core.camera import Intrinsics
 from ..core.candidates import coarse_to_fine
+from ..core.candidates import dso as dso_mod
 from ..math import pose as pose_mod
 from ..math import se3
 from ..math.optimizer import LMState, SolveResult, damped_solve, iterative_solve, lm_update
@@ -53,7 +64,10 @@ from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
 @dataclass(frozen=True)
 class TrackerConfig:
     """Static tracker configuration: the fields of the JAX ``TrackerConfig``
-    that the streaming and batched paths use, with the same defaults."""
+    that the streaming and batched paths use, with the same defaults, and
+    ``dso_seed``, the seed of the DSO selectors' random thinning (the JAX
+    package always draws from ``PRNGKey(0)``, whose bits torch cannot
+    reproduce)."""
 
     height: int
     width: int
@@ -73,6 +87,24 @@ class TrackerConfig:
     # host Tracker only: slice each level to a power-of-two bucket >= count
     bucket_candidates: bool = False
     min_bucket: int = 256
+    # Huber IRLS weights on the photometric residuals; 0 = off (plain L2)
+    robust_delta: float = 0.0
+    # per-frame affine brightness (gain a, bias b) solved with the pose
+    brightness_model: bool = False
+    # keep the last K unbucketed keyframes and recover a lost frame (failed,
+    # or finest-level plain energy not finite or above the accept energy)
+    # against them; 0 = off
+    relocalize_window: int = 0
+    relocalize_energy_accept: float = 150.0
+    relocalize_min_inside_frac: float = 0.5
+    # "coarse_to_fine", "dso" (host Tracker only: a host recursion on the
+    # block size) or "dso_fixed" (one pass at dso_block_size, no host read)
+    candidate_selector: str = "coarse_to_fine"
+    dso_target: int = 2000
+    dso_block_size: int = 4
+    dso_threshold_coef_a: float = 1.0
+    dso_threshold_coef_b: int = 3
+    dso_seed: int = 0
 
     def level_shapes(self) -> Tuple[Tuple[int, int], ...]:
         return tuple(pyramid_ops.level_shapes(self.height, self.width, self.nb_levels))
@@ -178,27 +210,64 @@ def _compaction_indices(known: torch.Tensor, cap: int):
     return torch.where(valid, idxs, torch.zeros_like(idxs)), valid
 
 
+def _region_config(config: TrackerConfig) -> dso_mod.RegionConfig:
+    return dso_mod.RegionConfig(
+        threshold_coef_a=config.dso_threshold_coef_a, threshold_coef_b=config.dso_threshold_coef_b
+    )
+
+
+def dso_mask(config: TrackerConfig, img: torch.Tensor) -> torch.Tensor:
+    """The level-0 candidate mask of the ``dso`` selector: the host
+    recursion ``core.candidates.dso.select`` on the image's gradient norm
+    (one or two host reads)."""
+    return dso_mod.select(
+        gradient_ops.norm_direct(img), config.dso_target, region_config=_region_config(config),
+        seed=config.dso_seed,
+    )
+
+
 def precompute_keyframe(
     config: TrackerConfig,
     intrinsics: Intrinsics,
     depth_map: torch.Tensor,
     img_pyramid: List[torch.Tensor],
+    finest_mask: torch.Tensor | None = None,
 ) -> KeyframeData:
     """All per-keyframe data (inverse_compositional.rs:105-161): candidate
-    masks by coarse-to-fine gradient selection, the DSO-mean inverse-depth
-    pyramid, and per-level candidates with template values and Jacobians.
+    masks by coarse-to-fine gradient selection (or a DSO selector), the
+    DSO-mean inverse-depth pyramid, and per-level candidates with template
+    values and Jacobians.
 
     ``depth_map`` is the int32 depth tensor on the pyramid's device.  With a
     leading lane axis (depth (K, H, W), levels (K, h, w)) every leaf but the
     shared intrinsics carries it too, (K, N, …), bit-equal to K one-lane
-    calls, from one set of tensor operations.
+    calls, from one set of tensor operations.  ``finest_mask`` replaces the
+    level-0 candidate selection: it carries the ``dso`` selector's mask,
+    whose host recursion cannot run here (``dso_mask``).
     """
     nb_levels = len(img_pyramid)
     intr_levels = camera_mod.multi_res(intrinsics, nb_levels)
     grads = [gradient_ops.centered_f32(img_pyramid[0])]
     grads.extend(gradient_ops.gradients_xy_f32(img_pyramid))
-    sqn = [gradient_ops.squared_norm_f32(gx, gy) for gx, gy in grads]
-    finest_mask = coarse_to_fine.select(config.candidates_diff_threshold, sqn)[-1]
+    if finest_mask is None:
+        selector = config.candidate_selector
+        if selector == "dso":
+            raise ValueError(
+                "candidate_selector='dso' needs its host recursion (dso_mask): use the host "
+                "Tracker, pass finest_mask=, or use 'dso_fixed'.  The batched driver supports "
+                "coarse_to_fine and dso_fixed."
+            )
+        if selector == "dso_fixed":
+            finest_mask = dso_mod.select_fixed_block(
+                gradient_ops.norm_direct(img_pyramid[0]), config.dso_target,
+                block_size=config.dso_block_size, region_config=_region_config(config),
+                seed=config.dso_seed,
+            )
+        elif selector == "coarse_to_fine":
+            sqn = [gradient_ops.squared_norm_f32(gx, gy) for gx, gy in grads]
+            finest_mask = coarse_to_fine.select(config.candidates_diff_threshold, sqn)[-1]
+        else:
+            raise ValueError(f"unknown candidate_selector {selector!r}")
     id0 = idepth_mod.masked(
         idepth_mod.from_depth(config.depth_scale, depth_map, config.idepth_variance),
         finest_mask,
@@ -237,7 +306,7 @@ def precompute_keyframe(
     return KeyframeData(levels=tuple(levels))
 
 
-_LANE_FIELDS = ("template", "xs", "ys", "idepth", "valid", "tmpl_vals", "jacobians")
+LANE_FIELDS = ("template", "xs", "ys", "idepth", "valid", "tmpl_vals", "jacobians")
 
 
 def map_keyframe(fn, *kfs: KeyframeData) -> KeyframeData:
@@ -245,7 +314,7 @@ def map_keyframe(fn, *kfs: KeyframeData) -> KeyframeData:
     tensors of ``kfs``; the shared intrinsics are the first keyframe's.
     ``map_keyframe(lambda x: x[b], kf)`` is lane ``b`` of a batched keyframe."""
     return KeyframeData(levels=tuple(
-        levels[0]._replace(**{f: fn(*(getattr(o, f) for o in levels)) for f in _LANE_FIELDS})
+        levels[0]._replace(**{f: fn(*(getattr(o, f) for o in levels)) for f in LANE_FIELDS})
         for levels in zip(*(kf.levels for kf in kfs))
     ))
 
@@ -258,25 +327,91 @@ def map_keyframe(fn, *kfs: KeyframeData) -> KeyframeData:
 def _eval_energy(obs: LevelObs, image: torch.Tensor, model: Pose):
     """Warp + sample + residual pass (lm_optimizer.rs:68-87): ``(energy, r,
     inside)``, energy = Σ_inside r² / #inside (NaN when nothing is inside).
-    Plain torch on every device: the streaming path evaluates through
-    ``_eval_full``; this energy-only pass serves lost-track detection."""
+    Plain torch on every device: the plain version of the lost-frame
+    detector, which on a GPU the finest level's solver launch computes."""
     r, inside = residual.residuals(
         image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, model, obs.intrinsics
     )
     return torch.sum(r * r) / torch.sum(inside).to(Float), r, inside
 
 
-def _eval_full(obs: LevelObs, image: torch.Tensor, model: Pose, out=None):
+def _eval_full(obs: LevelObs, image: torch.Tensor, model: Pose, out=None, robust_delta: float = 0.0):
     """Energy, ``Jᵀr`` and ``Σ JᵀJ`` of one LM evaluation
     (lm_optimizer.rs:68-107).  energy = Σ_inside r² / #inside: NaN when no
-    candidate lands inside, like the reference.  ``out`` is passed on to
+    candidate lands inside, like the reference.  ``robust_delta > 0``
+    weights every inside residual with its Huber weight w (energy Σ w r² /
+    #inside, weighted normal equations).  ``out`` is passed on to
     ``residual_reduce``."""
     params = torch.cat([model.q, model.t, obs.intrinsics.vector()])
     m, rsq, count = residual.residual_reduce(
         image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, params,
-        out=out,
+        out=out, robust_delta=robust_delta,
     )
     return rsq / count, m[:, 6], m[:, :6]
+
+
+class BrightnessState(NamedTuple):
+    """Pose and per-frame affine brightness ``ab = (gain a, bias b)``:
+    residual ``r = I(warp(p)) - (a T(p) + b)``.  The reference assumes
+    brightness constancy; auto-exposure cameras (TUM fr1) break it."""
+
+    pose: Pose
+    ab: torch.Tensor  # (2,) f32, (1, 0) at the start of a frame
+
+
+def _eval_full_brightness(obs: LevelObs, image: torch.Tensor, bst: BrightnessState, out=None,
+                          robust_delta: float = 0.0):
+    """The 8-parameter normal equations, columns ``[J | T | 1]``: energy,
+    ``g`` (8,) and ``H`` (8, 8).  The residual is linear in (a, b), so their
+    block is Gauss-Newton with additive updates while the pose keeps the
+    inverse-compositional update; one system updates both."""
+    params = torch.cat([bst.pose.q, bst.pose.t, obs.intrinsics.vector()])
+    m, rsq, count = residual.residual_reduce(
+        image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians, params,
+        out=out, robust_delta=robust_delta, ab=bst.ab,
+    )
+    return rsq / count, m[:, 8], m[:, :8]
+
+
+def _pose_step(pose: Pose, delta: torch.Tensor) -> Pose:
+    """``pose ∘ exp(δ)⁻¹`` renormalized to first order (lm_optimizer.rs:195-209)."""
+    return pose_mod.renormalize_first_order(pose_mod.compose(pose, pose_mod.inverse(se3.exp(delta))))
+
+
+def _lm_loop(evaluate, step, model0, image, *, lm_coef_init, max_iterations, energy_tol, out_size):
+    """The Python LM loop of ``solve_level_reference`` and
+    ``solve_level_brightness_reference``: ``evaluate(model, out)`` gives
+    (energy, g, H), ``step(model, delta)`` the next model."""
+    # one output row per evaluation: an accepted state keeps views of its row
+    outs = None
+    if image.device.type == "cuda":
+        outs = iter(torch.empty((max_iterations + 4, out_size), dtype=Float, device=image.device))
+
+    def run(model):
+        return evaluate(model, None if outs is None else next(outs))
+
+    def init(_, model):
+        energy, grad, hess = run(model)
+        lm_coef = torch.full((), lm_coef_init, dtype=Float, device=image.device)
+        return LMState(model, energy, grad, hess, lm_coef)
+
+    def lm_step(state):
+        return step(state.model, damped_solve(state.hessian, state.gradient, state.lm_coef))
+
+    def eval_fn(_, state, new_model):
+        return (new_model, *run(new_model))
+
+    def stop(state, nb_iter, eval_out):
+        new_model, energy, grad, hess = eval_out
+        return lm_update(
+            state, nb_iter, new_model, energy, grad, hess,
+            max_iterations=max_iterations, energy_tol=energy_tol,
+        )
+
+    return iterative_solve(
+        None, model0, init=init, step=lm_step, eval_fn=eval_fn, stop_criterion=stop,
+        max_iterations=max_iterations + 3,
+    )
 
 
 def solve_level_reference(
@@ -287,6 +422,7 @@ def solve_level_reference(
     lm_coef_init: float = 0.1,
     max_iterations: int = 20,
     energy_tol: float = 1.0,
+    robust_delta: float = 0.0,
 ) -> SolveResult:
     """The LM solve of one level as a Python loop: the plain version of
     ``ops.lm_solve.lm_solve_level`` (lm_optimizer.rs:111-193).  Damp the
@@ -294,39 +430,35 @@ def solve_level_reference(
     ``model ∘ exp(δ)⁻¹`` and renormalize the quaternion to first order.
     The host reads the device once per iteration.  On CUDA tensors its
     evaluations launch the ``residual_reduce`` kernel."""
-    # one output row per evaluation: an accepted state keeps views of its row
-    outs = None
-    if image.device.type == "cuda":
-        outs = iter(
-            torch.empty((max_iterations + 4, residual.OUT_SIZE), dtype=Float, device=image.device)
-        )
+    return _lm_loop(
+        lambda model, out: _eval_full(obs, image, model, out=out, robust_delta=robust_delta),
+        _pose_step, model0, image, lm_coef_init=lm_coef_init, max_iterations=max_iterations,
+        energy_tol=energy_tol, out_size=residual.OUT_SIZE,
+    )
 
-    def evaluate(model):
-        return _eval_full(obs, image, model, out=None if outs is None else next(outs))
 
-    def init(_, model):
-        energy, grad, hess = evaluate(model)
-        lm_coef = torch.full((), lm_coef_init, dtype=Float, device=image.device)
-        return LMState(model, energy, grad, hess, lm_coef)
+def solve_level_brightness_reference(
+    obs: LevelObs,
+    image: torch.Tensor,
+    state0: BrightnessState,
+    *,
+    lm_coef_init: float = 0.1,
+    max_iterations: int = 20,
+    energy_tol: float = 1.0,
+    robust_delta: float = 0.0,
+) -> SolveResult:
+    """The LM solve of one level over (pose, gain, bias) as a Python loop:
+    the plain version of the brightness instantiation of
+    ``lm_solve_level``.  A step updates the pose with ``δ[0:6]``
+    inverse-compositionally and adds ``δ[6:8]`` to (a, b)."""
 
-    def step(state):
-        delta = damped_solve(state.hessian, state.gradient, state.lm_coef)
-        new_model = pose_mod.compose(state.model, pose_mod.inverse(se3.exp(delta)))
-        return pose_mod.renormalize_first_order(new_model)
+    def step(bst, delta):
+        return BrightnessState(pose=_pose_step(bst.pose, delta[:6]), ab=bst.ab + delta[6:8])
 
-    def eval_fn(_, state, new_model):
-        return (new_model, *evaluate(new_model))
-
-    def stop(state, nb_iter, eval_out):
-        new_model, energy, grad, hess = eval_out
-        return lm_update(
-            state, nb_iter, new_model, energy, grad, hess,
-            max_iterations=max_iterations, energy_tol=energy_tol,
-        )
-
-    return iterative_solve(
-        None, model0, init=init, step=step, eval_fn=eval_fn, stop_criterion=stop,
-        max_iterations=max_iterations + 3,
+    return _lm_loop(
+        lambda bst, out: _eval_full_brightness(obs, image, bst, out=out, robust_delta=robust_delta),
+        step, state0, image, lm_coef_init=lm_coef_init, max_iterations=max_iterations,
+        energy_tol=energy_tol, out_size=residual.OUT_SIZE_BRIGHTNESS,
     )
 
 
@@ -337,10 +469,35 @@ def _launch_level(obs: LevelObs, image, state_in, record, **kwargs):
     )
 
 
-def _start_state(model: Pose) -> torch.Tensor:
-    """``state_in`` of a frame's first launch, (…, 8): the pose, nothing
-    failed yet."""
-    return torch.cat([model.q, model.t, model.t.new_zeros((*model.t.shape[:-1], 1))], dim=-1)
+@lru_cache(maxsize=None)
+def _constant(values: Tuple[float, ...], device: torch.device) -> torch.Tensor:
+    """A small f32 constant on ``device``, copied there once: a copy from the
+    host inside a frame would wait for the device."""
+    return torch.tensor(values, dtype=Float, device=device)
+
+
+def identity_lanes(nb_lanes: int, device) -> Pose:
+    """``nb_lanes`` identity poses, (B, 4) and (B, 3) views of one constant."""
+    device = torch.device(device)
+    return Pose(_constant((1.0, 0.0, 0.0, 0.0), device).expand(nb_lanes, 4),
+                _constant((0.0, 0.0, 0.0), device).expand(nb_lanes, 3))
+
+
+def _start_state(model: Pose, ab: torch.Tensor | None = None) -> torch.Tensor:
+    """``state_in`` of a frame's first launch, (…, 10): the pose, nothing
+    failed yet, and the brightness (a, b), (1, 0) unless given."""
+    lead = model.t.shape[:-1]
+    if ab is None:
+        ab = _constant((1.0, 0.0), model.t.device).expand(*lead, 2)
+    return torch.cat([model.q, model.t, model.t.new_zeros((*lead, 1)), ab], dim=-1)
+
+
+def _solve_launch(obs, image, state_in, brightness: bool, **kwargs):
+    """One ``lm_solve_level`` launch of one level: (record, nb_iter,
+    failed), the counts as 0-d device tensors."""
+    record = torch.empty((lm_solve.RECORD_SIZE,), dtype=Float, device=image.device)
+    _launch_level(obs, image, state_in, record, brightness=brightness, **kwargs)
+    return record, record[lm_solve.NB_ITER].to(torch.int32), record[lm_solve.FAILED] != 0
 
 
 def solve_level(
@@ -351,27 +508,54 @@ def solve_level(
     lm_coef_init: float = 0.1,
     max_iterations: int = 20,
     energy_tol: float = 1.0,
+    robust_delta: float = 0.0,
 ) -> SolveResult:
     """LM solve of one pyramid level (lm_optimizer.rs:111-193).
 
     CPU tensors take ``solve_level_reference``; CUDA tensors launch the
     ``lm_solve_level`` kernel once, and ``nb_iter`` and ``failed`` of the
     result are then 0-d device tensors: nothing is read on the host."""
-    kwargs = dict(lm_coef_init=lm_coef_init, max_iterations=max_iterations, energy_tol=energy_tol)
+    kwargs = dict(lm_coef_init=lm_coef_init, max_iterations=max_iterations, energy_tol=energy_tol,
+                  robust_delta=robust_delta)
     if image.device.type == "cpu":
         return solve_level_reference(obs, image, model0, **kwargs)
-    record = torch.empty((lm_solve.RECORD_SIZE,), dtype=Float, device=image.device)
-    _launch_level(obs, image, _start_state(model0), record, **kwargs)
+    record, nb_iter, failed = _solve_launch(obs, image, _start_state(model0), False, **kwargs)
     pose = record[lm_solve.POSE]
     m = record[lm_solve.NORMAL_EQUATIONS].view(6, 7)
     state = LMState(
         Pose(pose[0:4], pose[4:7]), record[lm_solve.ENERGY], m[:, 6], m[:, :6],
         record[lm_solve.LM_COEF],
     )
-    return SolveResult(
-        state=state, nb_iter=record[lm_solve.NB_ITER].to(torch.int32),
-        failed=record[lm_solve.FAILED] != 0,
+    return SolveResult(state=state, nb_iter=nb_iter, failed=failed)
+
+
+def solve_level_brightness(
+    obs: LevelObs,
+    image: torch.Tensor,
+    state0: BrightnessState,
+    *,
+    lm_coef_init: float = 0.1,
+    max_iterations: int = 20,
+    energy_tol: float = 1.0,
+    robust_delta: float = 0.0,
+) -> SolveResult:
+    """LM solve of one level over (pose, gain, bias).  CPU tensors take
+    ``solve_level_brightness_reference``; CUDA tensors launch the
+    8-parameter instantiation of ``lm_solve_level`` once, with no host
+    read."""
+    kwargs = dict(lm_coef_init=lm_coef_init, max_iterations=max_iterations, energy_tol=energy_tol,
+                  robust_delta=robust_delta)
+    if image.device.type == "cpu":
+        return solve_level_brightness_reference(obs, image, state0, **kwargs)
+    state_in = _start_state(state0.pose, state0.ab)
+    record, nb_iter, failed = _solve_launch(obs, image, state_in, True, **kwargs)
+    pose = record[lm_solve.POSE]
+    m = record[lm_solve.NORMAL_EQUATIONS_BRIGHTNESS].view(8, 9)
+    state = LMState(
+        BrightnessState(Pose(pose[0:4], pose[4:7]), record[lm_solve.AB]), record[lm_solve.ENERGY],
+        m[:, 8], m[:, :8], record[lm_solve.LM_COEF],
     )
+    return SolveResult(state=state, nb_iter=nb_iter, failed=failed)
 
 
 # ---------------------------------------------------------------------------
@@ -401,6 +585,10 @@ class TrackResult(NamedTuple):
     flow: torch.Tensor  # 0-d: mean abs optical flow at the coarsest level (px)
     nb_iters: torch.Tensor  # (nb_levels,) int32: LM iterations per level, 0 = finest
     nb_evals: torch.Tensor  # (nb_levels,) int32: LM evaluations per level
+    # with ``detector``: (3,) the plain energy of the finest level under
+    # ``model`` (the lost-frame detector, ``_eval_energy``), its inside count
+    # and the level's valid count; else None
+    detector: torch.Tensor | None = None
 
 
 def _level_kwargs(config: TrackerConfig, lvl: int) -> dict:
@@ -408,6 +596,7 @@ def _level_kwargs(config: TrackerConfig, lvl: int) -> dict:
         lm_coef_init=config.lm_coef_init,
         max_iterations=config.level_iterations(lvl),
         energy_tol=config.energy_tol,
+        robust_delta=config.robust_delta,
     )
 
 
@@ -422,11 +611,12 @@ def _mean_flow(model: Pose, coarse: LevelObs) -> torch.Tensor:
     return torch.sum(dflow * validf) / torch.sum(validf)
 
 
-def _track_frame_kernel(config, kf, img_pyramid, init_model) -> TrackResult:
+def _track_frame_kernel(config, kf, img_pyramid, init_model, detector, image_index, active) -> TrackResult:
     """Coarse-to-fine ``lm_solve_level``: one launch per level for all lanes,
-    each reading its start pose and the failed-so-far flag from the record
-    of the level before; the finest level's launch also computes the flow.
-    No host read."""
+    each reading its start state (pose, failed-so-far flag, brightness) from
+    the record of the level before; the finest level's launch also computes
+    the flow and, with ``detector``, the lost-frame detector.  No host
+    read."""
     lead = init_model.q.shape[:-1]
     records = torch.empty(
         (config.nb_levels, *lead, lm_solve.RECORD_SIZE), dtype=Float, device=init_model.q.device
@@ -438,8 +628,9 @@ def _track_frame_kernel(config, kf, img_pyramid, init_model) -> TrackResult:
         if lvl == 0:  # the last launch: its handed-on pose is the frame's
             flow_of = (coarse.xs, coarse.ys, coarse.idepth, coarse.valid, coarse.intrinsics.vector())
         _launch_level(
-            kf.levels[lvl], img_pyramid[lvl], state, records[lvl],
-            flow_of=flow_of, **_level_kwargs(config, lvl),
+            kf.levels[lvl], img_pyramid[lvl], state, records[lvl], flow_of=flow_of,
+            brightness=config.brightness_model, detector=detector and lvl == 0,
+            image_index=image_index, active=active, **_level_kwargs(config, lvl),
         )
         state = records[lvl, ..., : lm_solve.STATE_SIZE]
     # (…, nb_levels, 2): iterations and evaluations per level
@@ -447,6 +638,7 @@ def _track_frame_kernel(config, kf, img_pyramid, init_model) -> TrackResult:
     return TrackResult(
         model=Pose(state[..., 0:4], state[..., 4:7]), failed=state[..., lm_solve.FAILED_SO_FAR] != 0,
         flow=records[0, ..., lm_solve.FLOW], nb_iters=counts[..., 0], nb_evals=counts[..., 1],
+        detector=records[0, ..., lm_solve.DETECTOR] if detector else None,
     )
 
 
@@ -455,20 +647,42 @@ def track_frame(
     kf: KeyframeData,
     img_pyramid: List[torch.Tensor],
     init_model: Pose,
+    *,
+    detector: bool = False,
+    image_index: torch.Tensor | None = None,
+    active: torch.Tensor | None = None,
 ) -> TrackResult:
     """Coarse-to-fine LM alignment of one frame against the keyframe
     (inverse_compositional.rs:170-240).  After a failed level the model is
     frozen for the rest of the frame; the remaining levels still run, as in
-    the JAX package, so their iteration counts are reported.
+    the JAX package, so their iteration counts are reported.  With
+    ``config.brightness_model`` every level also solves the gain and bias
+    (a, b), which start at (1, 0), hand on from level to level and freeze
+    with the pose (the JAX package's ``_track_frame_brightness``); the
+    result carries the pose only.
 
     CUDA tensors go through the ``lm_solve_level`` kernel (one launch per
     level for all lanes, no host read); CPU tensors through
     ``track_frame_reference``.  With a lane axis (``init_model`` (B, 4) and
     (B, 3), keyframe and pyramid (B, …)) every field of the result carries
-    it."""
+    it.  ``image_index`` (B,) int32 makes lane b track image
+    ``image_index[b]`` of pyramid levels (M, h, w); ``active`` (B,) bool
+    leaves the lanes whose flag is False untracked (their result is the
+    init model, not failed, NaN flow and detector energy, zero counts).
+    ``detector`` also reports ``TrackResult.detector``."""
+    kwargs = dict(detector=detector, image_index=image_index, active=active)
     if init_model.q.device.type == "cpu":
-        return track_frame_reference(config, kf, img_pyramid, init_model)
-    return _track_frame_kernel(config, kf, img_pyramid, init_model)
+        return track_frame_reference(config, kf, img_pyramid, init_model, **kwargs)
+    return _track_frame_kernel(config, kf, img_pyramid, init_model, **kwargs)
+
+
+def _untracked(config: TrackerConfig, init_model: Pose, detector: bool) -> TrackResult:
+    """The result of an inactive lane: what its pass-through records hold."""
+    zeros = torch.zeros(config.nb_levels, dtype=torch.int32, device=init_model.q.device)
+    nan = torch.tensor(float("nan"), dtype=Float, device=init_model.q.device)
+    det = torch.stack([nan, nan.new_zeros(()), nan.new_zeros(())]) if detector else None
+    return TrackResult(model=init_model, failed=torch.tensor(False, device=nan.device), flow=nan,
+                       nb_iters=zeros, nb_evals=zeros, detector=det)
 
 
 def track_frame_reference(
@@ -476,40 +690,63 @@ def track_frame_reference(
     kf: KeyframeData,
     img_pyramid: List[torch.Tensor],
     init_model: Pose,
+    *,
+    detector: bool = False,
+    image_index: torch.Tensor | None = None,
+    active: torch.Tensor | None = None,
 ) -> TrackResult:
-    """``track_frame`` through ``solve_level_reference``, chained on the
-    host, on any device: the plain version that the kernel path is held
-    against.  A lane axis is solved lane by lane and stacked: the plain
-    version of the lane-axis launch."""
+    """``track_frame`` through ``solve_level_reference`` (or
+    ``solve_level_brightness_reference``), chained on the host, on any
+    device: the plain version that the kernel path is held against.  A lane
+    axis is solved lane by lane and stacked: the plain version of the
+    lane-axis launch, ``image_index`` and ``active`` read on the host."""
     if init_model.q.dim() == 2:
-        lanes = [
-            track_frame_reference(
-                config, map_keyframe(lambda x: x[b], kf), [p[b] for p in img_pyramid],
-                Pose(init_model.q[b], init_model.t[b]),
-            )
-            for b in range(init_model.q.shape[0])
-        ]
+        nb_lanes = init_model.q.shape[0]
+        images = range(nb_lanes) if image_index is None else image_index.tolist()
+        running = [True] * nb_lanes if active is None else active.tolist()
+        lanes = []
+        for b in range(nb_lanes):
+            init_b = Pose(init_model.q[b], init_model.t[b])
+            if not running[b]:
+                lanes.append(_untracked(config, init_b, detector))
+                continue
+            lanes.append(track_frame_reference(
+                config, map_keyframe(lambda x: x[b], kf), [p[images[b]] for p in img_pyramid], init_b,
+                detector=detector,
+            ))
+        fields = {f: torch.stack([getattr(r, f) for r in lanes]) for f in TrackResult._fields[1:-1]}
         return TrackResult(
             model=Pose(torch.stack([r.model.q for r in lanes]), torch.stack([r.model.t for r in lanes])),
-            **{f: torch.stack([getattr(r, f) for r in lanes]) for f in TrackResult._fields[1:]},
+            detector=torch.stack([r.detector for r in lanes]) if detector else None, **fields,
         )
+    device = init_model.q.device
     model = init_model
+    ab = torch.tensor([1.0, 0.0], dtype=Float, device=device)
     failed = False
     nb_iters = [0] * config.nb_levels
     for lvl in reversed(range(config.nb_levels)):
-        result = solve_level_reference(
-            kf.levels[lvl], img_pyramid[lvl], model, **_level_kwargs(config, lvl)
-        )
+        obs, image, kwargs = kf.levels[lvl], img_pyramid[lvl], _level_kwargs(config, lvl)
+        if config.brightness_model:
+            result = solve_level_brightness_reference(obs, image, BrightnessState(model, ab), **kwargs)
+            new_model, new_ab = result.state.model
+        else:
+            result = solve_level_reference(obs, image, model, **kwargs)
+            new_model, new_ab = result.state.model, ab
         if not (failed or result.failed):
-            model = result.state.model
+            model, ab = new_model, new_ab
         failed = failed or result.failed
         nb_iters[lvl] = result.nb_iter
-    device = init_model.q.device
+    det = None
+    if detector:
+        finest = kf.levels[0]
+        energy, _, inside = _eval_energy(finest, img_pyramid[0], model)
+        det = torch.stack([energy, inside.sum().to(Float), finest.valid.sum().to(Float)])
     nb_iters = torch.tensor(nb_iters, dtype=torch.int32, device=device)
     return TrackResult(
         model=model, failed=torch.tensor(failed, device=device),
         flow=_mean_flow(model, kf.levels[-1]), nb_iters=nb_iters,
         nb_evals=nb_iters + 1,  # the loop evaluates once at the start and once per iteration
+        detector=det,
     )
 
 
@@ -523,12 +760,20 @@ class Tracker:
     ``Tracker::track`` → ``Tracker::current_frame``, vors_track.rs:34-63).
 
     Images and depth maps come as numpy arrays or tensors; they are moved to
-    ``device`` here, which is the GPU unless the caller names another.  The
+    ``device``, which is the GPU unless the caller names another.  The
     tracker's own three poses (keyframe, current, previous) are 7 floats each
     and live on the host, where composing them costs microseconds.  On a GPU
     the host reads the device once per frame (the solved pose, flow, failed
-    flag and per-level counts in one transfer), and once more on a keyframe
-    switch with bucketing on.
+    flag, per-level counts and, with relocalization, the detector's energy
+    in one transfer), and once more on a keyframe switch with bucketing on
+    or with the ``dso`` selector.
+
+    With ``relocalize_window = K > 0`` the tracker keeps its last K
+    keyframes, unbucketed, and a frame that is lost (failed, or the plain
+    energy of the finest level under the solved pose not finite or above
+    ``relocalize_energy_accept``) is tracked again against all of them at
+    once (``models.relocalize.attempt``); the best verified keyframe becomes
+    the anchor again.  A lost frame never becomes a keyframe.
     """
 
     # the frame solver; a subclass may put ``track_frame_reference`` here
@@ -548,7 +793,8 @@ class Tracker:
         self.device = resolve_device(device)
         self.intrinsics = intrinsics.to(self.device)
         pyr = pyramid_ops.mean_pyramid(config.nb_levels, image_tensor(img, self.device))
-        self.keyframe_data = self._precompute(depth_map, pyr)
+        raw_kf = self._precompute(depth_map, pyr)
+        self.keyframe_data = self._maybe_bucket(raw_kf)
         self.keyframe_pose = pose_mod.identity()
         self.keyframe_depth_timestamp = depth_timestamp
         self.keyframe_img_timestamp = img_timestamp
@@ -559,34 +805,45 @@ class Tracker:
         self.current_img_timestamp = img_timestamp
         self.last_flow: float = 0.0
         self.last_failed: bool = False
+        self.last_energy: float = 0.0
         self.last_nb_iters: Tuple[int, ...] = (0,) * config.nb_levels
         self.last_nb_evals: Tuple[int, ...] = (0,) * config.nb_levels
         self.keyframe_switches: int = 0
+        # the relocalization ring: unbucketed keyframes, so that they stack
+        self.relocalizations: int = 0
+        self._reloc_history = []
+        if config.relocalize_window > 0:
+            self._reloc_history.append((raw_kf, self.keyframe_pose, depth_timestamp, img_timestamp))
 
     def _precompute(self, depth_map, pyr) -> KeyframeData:
-        kf = precompute_keyframe(
-            self.config, self.intrinsics, depth_tensor(depth_map, self.device), pyr
+        """The unbucketed keyframe of a depth map and pyramid."""
+        mask = dso_mask(self.config, pyr[0]) if self.config.candidate_selector == "dso" else None
+        return precompute_keyframe(
+            self.config, self.intrinsics, depth_tensor(depth_map, self.device), pyr, finest_mask=mask
         )
-        return self._maybe_bucket(kf)
 
     def track(self, depth_timestamp: float, depth_map, img_timestamp: float, img) -> None:
         """Track one frame (inverse_compositional.rs:170-240)."""
-        pyr = pyramid_ops.mean_pyramid(self.config.nb_levels, image_tensor(img, self.device))
+        config = self.config
+        reloc = config.relocalize_window > 0
+        pyr = pyramid_ops.mean_pyramid(config.nb_levels, image_tensor(img, self.device))
         init_model = warm_start_init(
-            self.config, self.keyframe_pose, self.current_pose, self.prev_pose
+            config, self.keyframe_pose, self.current_pose, self.prev_pose
         ).to(self.device)
-        result = self._track_frame(self.config, self.keyframe_data, pyr, init_model)
+        result = self._track_frame(config, self.keyframe_data, pyr, init_model, detector=reloc)
+        head = [result.flow, result.failed.to(Float)] + ([result.detector[0]] if reloc else [])
         # the frame's one device→host read
         stats = torch.cat(
-            [torch.stack([result.flow, result.failed.to(Float)]),
-             result.nb_iters.to(Float), result.nb_evals.to(Float), result.model.q, result.model.t]
+            [torch.stack(head), result.nb_iters.to(Float), result.nb_evals.to(Float),
+             result.model.q, result.model.t]
         ).cpu()
-        levels = self.config.nb_levels
+        levels, first = config.nb_levels, len(head)
         values = stats.tolist()
         self.last_flow = values[0]
         self.last_failed = values[1] != 0.0
-        self.last_nb_iters = tuple(int(n) for n in values[2 : 2 + levels])
-        self.last_nb_evals = tuple(int(n) for n in values[2 + levels : 2 + 2 * levels])
+        self.last_energy = values[2] if reloc else 0.0
+        self.last_nb_iters = tuple(int(n) for n in values[first : first + levels])
+        self.last_nb_evals = tuple(int(n) for n in values[first + levels : first + 2 * levels])
         model = Pose(stats[-7:-3], stats[-3:])
 
         self.current_depth_timestamp = depth_timestamp
@@ -597,12 +854,56 @@ class Tracker:
         if not self.last_failed:
             self.current_pose = pose_mod.compose(self.keyframe_pose, pose_mod.inverse(model))
 
-        if self.last_flow >= self.config.flow_threshold:
-            self.keyframe_data = self._precompute(depth_map, pyr)
+        if reloc and (
+            self.last_failed
+            or not math.isfinite(self.last_energy)
+            or self.last_energy > config.relocalize_energy_accept
+        ):
+            # lost: try the ring; either way the frame does not become a
+            # keyframe, and the velocity across it is zero
+            self._try_relocalize(pyr)
+            self.prev_pose = self.current_pose
+            return
+
+        if self.last_flow >= config.flow_threshold:
+            raw_kf = self._precompute(depth_map, pyr)
+            self.keyframe_data = self._maybe_bucket(raw_kf)
             self.keyframe_depth_timestamp = depth_timestamp
             self.keyframe_img_timestamp = img_timestamp
             self.keyframe_pose = self.current_pose
             self.keyframe_switches += 1
+            if reloc:
+                self._reloc_history.append((raw_kf, self.keyframe_pose, depth_timestamp, img_timestamp))
+                del self._reloc_history[: -config.relocalize_window]
+
+    def _try_relocalize(self, pyr) -> None:
+        """Track the lost frame against every keyframe of the ring in one
+        lane-axis solve per level (``models.relocalize.attempt``) and read
+        the outcome in one transfer.  On success adopt the recovered pose
+        and make the matched keyframe the anchor again; else keep the
+        previous pose (the reference's behaviour)."""
+        from . import relocalize as reloc_mod
+
+        if not self._reloc_history:
+            return
+        kfs, kf_q, kf_t = reloc_mod.stack_history(self._reloc_history)
+        res = reloc_mod.attempt(
+            self.config, kfs, kf_q, kf_t, pyr,
+            self.config.relocalize_energy_accept, self.config.relocalize_min_inside_frac,
+        )
+        host = torch.cat([torch.stack([res.ok.to(Float), res.best.to(Float), res.energy]),
+                          res.pose.q, res.pose.t]).cpu()
+        if host[0] == 0.0:
+            return
+        raw_kf, kf_pose, kf_dts, kf_its = self._reloc_history[int(host[1])]
+        self.current_pose = Pose(host[3:7], host[7:10])
+        self.keyframe_data = self._maybe_bucket(raw_kf)
+        self.keyframe_pose = kf_pose
+        self.keyframe_depth_timestamp = kf_dts
+        self.keyframe_img_timestamp = kf_its
+        self.last_failed = False
+        self.last_energy = float(host[2])
+        self.relocalizations += 1
 
     def _maybe_bucket(self, kf: KeyframeData) -> KeyframeData:
         """Slice each level's candidates to the smallest power-of-two bucket

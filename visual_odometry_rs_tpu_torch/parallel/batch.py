@@ -24,14 +24,20 @@ written back with ``index_copy``, which replaces the JAX package's one-hot
 lane moves and its ``switch_subbatch`` compaction.  Lanes never wait on each
 other: each lane's solve ends after its own iterations.
 
+With ``reloc_ring`` (a ``RelocRing``: each lane's last R keyframes on the
+device) every frame also runs the lost-frame detector in the finest
+level's launch, keeps lost lanes from switching keyframes, and runs the
+recovery of ``_recover_lost``: B x R lanes of six more ``lm_solve_level``
+launches, where every lane that is not lost, and every empty ring slot, is
+inactive and returns at once.  So a steady frame still reads nothing on
+the host; the JAX package takes the same step behind ``lax.cond(any(lost))``.
+
 On the CPU the same code runs the plain versions (the Python LM loop, lane
 by lane).
 
-Not in this slice: in-scan relocalization (``reloc_ring``,
-``batched_init_ring``; ROADMAP A9) and the sharded step
-(``make_sharded_step``; ROADMAP A12).  The JAX package's
-``_resolve_batched_interp`` picks a TPU interpolation and has no
-counterpart here.
+Not in this slice: the sharded step (``make_sharded_step``; ROADMAP A12).
+The JAX package's ``_resolve_batched_interp`` picks a TPU interpolation and
+has no counterpart here.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 from ..core.camera import Intrinsics
 from ..math import pose as pose_mod
 from ..math.pose import Pose
+from ..models import relocalize as reloc_mod
 from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
 from ..ops import pyramid as pyramid_ops
@@ -62,8 +69,22 @@ class StepDiagnostics(NamedTuple):
     flow: torch.Tensor  # mean optical flow at the coarsest level (px)
     failed: torch.Tensor  # bool: some level's Cholesky failed
     switched: torch.Tensor  # bool: the keyframe was replaced this frame
-    relocalized: torch.Tensor  # bool, all False: relocalization is ROADMAP A9
+    relocalized: torch.Tensor  # bool: recovered against the RelocRing this frame
     nb_iters: torch.Tensor  # (…, nb_levels) int32 LM iterations, 0 = finest
+
+
+class RelocRing(NamedTuple):
+    """Per-lane ring of the last R keyframes for relocalization in the
+    batched driver (the host ``Tracker``'s keyframe history, one per lane):
+    keyframe leaves (B, R, …) (the intrinsics shared), their poses, the
+    number of filled slots and the next slot to write.  Slot 0 starts as the
+    initial keyframe."""
+
+    kf: KeyframeData  # lane leaves (B, R, ...)
+    pose_q: torch.Tensor  # (B, R, 4) keyframe camera-to-world quaternions
+    pose_t: torch.Tensor  # (B, R, 3)
+    count: torch.Tensor  # (B,) int32 filled slots
+    head: torch.Tensor  # (B,) int32 next slot to write
 
 
 def _bcast(flag: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -114,6 +135,79 @@ def batched_init_state(
     if imgs.ndim != 3 or depths.ndim != 3:
         raise ValueError(f"depths and imgs must be (B, H, W), got {depths.shape} and {imgs.shape}")
     return init_state(config, intrinsics, depths, imgs, device)
+
+
+def batched_init_ring(config: TrackerConfig, state: TrackState) -> RelocRing:
+    """A ``RelocRing`` of ``config.relocalize_window`` slots for a freshly
+    initialized batched state: slot 0 of every lane holds its initial
+    keyframe; the other slots are copies that ``count`` masks out until
+    switches fill them."""
+    slots = config.relocalize_window
+    if slots <= 0:
+        raise ValueError("config.relocalize_window must be > 0 to build a ring")
+    nb_lanes = state.keyframe_pose.q.shape[0]
+
+    def repeat(x):
+        return x[:, None].expand(x.shape[0], slots, *x.shape[1:]).contiguous()
+
+    device = state.keyframe_pose.q.device
+    return RelocRing(
+        kf=tracker_mod.map_keyframe(repeat, state.kf),
+        pose_q=repeat(state.keyframe_pose.q), pose_t=repeat(state.keyframe_pose.t),
+        count=torch.ones(nb_lanes, dtype=torch.int32, device=device),
+        head=torch.full((nb_lanes,), 1 % slots, dtype=torch.int32, device=device),
+    )
+
+
+def _ring_write(ring: RelocRing, lanes: torch.Tensor, kf: KeyframeData, pose: Pose) -> None:
+    """Writes the keyframe and pose of each lane in ``lanes`` (a device
+    index tensor) at that lane's head slot, and advances its head and count.
+    In place: the ring is large, and ``batched_track_sequence`` works on its
+    own copy."""
+    slots = ring.pose_q.shape[1]
+    head = ring.head[lanes].long()
+    for ring_levels, levels in zip(ring.kf.levels, kf.levels):
+        for f in tracker_mod.LANE_FIELDS:
+            getattr(ring_levels, f)[lanes, head] = getattr(levels, f)[lanes]
+    ring.pose_q[lanes, head] = pose.q[lanes]
+    ring.pose_t[lanes, head] = pose.t[lanes]
+    ring.head[lanes] = ((head + 1) % slots).to(torch.int32)
+    ring.count[lanes] = torch.clamp(ring.count[lanes] + 1, max=slots)
+
+
+def _recover_lost(config: TrackerConfig, lost, pyrs, ring: RelocRing, current: Pose, kf: KeyframeData,
+                  keyframe_pose: Pose):
+    """Relocalization in the batched driver (the JAX package's
+    ``_recover_lost``): every lost lane tracks its frame against the filled
+    slots of its ring, from identity, and adopts the best verified pose and
+    its keyframe.  One lane-axis ``track_frame`` of B x R lanes whose image
+    is their lane's, with every slot of a lane that is not lost (and every
+    empty slot) inactive; no host read.  Returns (current, kf,
+    keyframe_pose, relocalized)."""
+    nb_lanes, slots = ring.pose_q.shape[:2]
+    device = lost.device
+    flat = tracker_mod.map_keyframe(lambda x: x.reshape(nb_lanes * slots, *x.shape[2:]), ring.kf)
+    empty = torch.arange(slots, device=device)[None, :] >= ring.count[:, None]
+    active = (lost[:, None] & ~empty).reshape(-1)
+    image_index = (torch.arange(nb_lanes * slots, device=device) // slots).to(torch.int32)
+    init = tracker_mod.identity_lanes(nb_lanes * slots, device)
+    result = tracker_mod.track_frame(config, flat, pyrs, init, detector=True, image_index=image_index,
+                                     active=active)
+    energies, inside, valid = result.detector.reshape(nb_lanes, slots, 3).unbind(-1)
+    best, ok = reloc_mod.rank(
+        result.failed.reshape(nb_lanes, slots), energies, inside, valid,
+        config.relocalize_energy_accept, config.relocalize_min_inside_frac, empty=empty,
+    )
+    adopt = lost & ok
+    lane = torch.arange(nb_lanes, device=device)
+    model = Pose(result.model.q.reshape(nb_lanes, slots, 4)[lane, best],
+                 result.model.t.reshape(nb_lanes, slots, 3)[lane, best])
+    ring_pose = Pose(ring.pose_q[lane, best], ring.pose_t[lane, best])
+    current = _where_pose(adopt, _solved_pose(ring_pose, model), current)
+    kf = tracker_mod.map_keyframe(
+        lambda old, slot_x: torch.where(_bcast(adopt, old), slot_x[lane, best], old), kf, ring.kf
+    )
+    return current, kf, _where_pose(adopt, ring_pose, keyframe_pose), adopt
 
 
 def track_step(config: TrackerConfig, intrinsics: Intrinsics, state: TrackState, depth, img):
@@ -220,9 +314,23 @@ def batched_track_sequence(
     JAX package's signature (-1 resolves to ``max(1, B // 4)``) and changes
     nothing: only the switching lanes are precomputed whatever it says, and
     the JAX package's switch pattern is the same for every value.
+
+    ``reloc_ring`` (from ``batched_init_ring``, ``config.relocalize_window >
+    0``) turns on relocalization: a lane is lost on a frame where its track
+    failed or the plain energy of its finest level under the solved pose is
+    not finite or above ``config.relocalize_energy_accept``.  A lost lane
+    neither pends nor switches (a lane that pended earlier stays pending),
+    and it is recovered against its ring (``_recover_lost``); switching
+    lanes write their new keyframe into the ring.  The updated ring comes
+    last in the outputs; the one passed in is not modified.
     """
-    if reloc_ring is not None:
-        raise NotImplementedError("in-scan relocalization (reloc_ring) is not ported yet: ROADMAP A9")
+    reloc_on = reloc_ring is not None
+    if reloc_on and config.relocalize_window <= 0:
+        raise ValueError("reloc_ring passed but config.relocalize_window is 0; build the config with "
+                         "relocalize_window=R and the ring with batched_init_ring")
+    if config.candidate_selector == "dso":
+        raise ValueError("candidate_selector='dso' needs a host recursion per keyframe: the batched "
+                         "driver supports coarse_to_fine and dso_fixed")
     if switch_cadence < 1:
         raise ValueError(f"switch_cadence must be >= 1, got {switch_cadence}")
     if switch_subbatch < -1:
@@ -239,6 +347,10 @@ def batched_track_sequence(
     intrinsics = intrinsics.to(device)
     vel = config.warm_start == "constant_velocity"
     kf, keyframe_pose, current = state
+    ring = None
+    if reloc_on:  # this call's own copy, written in place
+        ring = RelocRing(tracker_mod.map_keyframe(torch.clone, reloc_ring.kf),
+                         *(x.clone() for x in reloc_ring[1:]))
     pending = (
         torch.zeros(batch, dtype=torch.bool, device=device) if pending0 is None
         else torch.as_tensor(pending0, dtype=torch.bool, device=device)
@@ -246,16 +358,23 @@ def batched_track_sequence(
     prev = prev_pose0.to(device) if (vel and prev_pose0 is not None) else current
     no_switch = torch.zeros(batch, dtype=torch.bool, device=device)
     poses: List[Pose] = []
-    results, switches = [], []
+    results, switches, recoveries = [], [], []
     for t in range(nb_frames):
         init_model = tracker_mod.warm_start_init(config, keyframe_pose, current, prev)
         pyrs = pyramid_ops.mean_pyramid(config.nb_levels, imgs[t])
-        result = tracker_mod.track_frame(config, kf, pyrs, init_model)
+        result = tracker_mod.track_frame(config, kf, pyrs, init_model, detector=reloc_on)
         new_current = _where_pose(result.failed, current, _solved_pose(keyframe_pose, result.model))
-        pending = pending | (result.flow >= config.flow_threshold)  # False for a NaN flow
+        switch_now = result.flow >= config.flow_threshold  # False for a NaN flow
+        if reloc_on:
+            energy = result.detector[..., 0]
+            lost = result.failed | ~torch.isfinite(energy) | (energy > config.relocalize_energy_accept)
+            switch_now = switch_now & ~lost  # a lost frame never becomes a keyframe
+        pending = pending | switch_now
+        # a lane that pended earlier does not switch on a frame where it is lost
+        switch_mask = pending & ~lost if reloc_on else pending
         switched = no_switch
         if (frame_offset + t + 1) % switch_cadence == 0:
-            lanes = torch.nonzero(pending.cpu()).flatten()  # the check frame's host read
+            lanes = torch.nonzero(switch_mask.cpu()).flatten()  # the check frame's host read
             if lanes.numel() > 0:
                 idx = lanes.to(device)
                 new_kf = tracker_mod.precompute_keyframe(
@@ -263,22 +382,31 @@ def batched_track_sequence(
                     [p.index_select(0, idx) for p in pyrs],
                 )
                 kf = tracker_mod.map_keyframe(lambda old, new: old.index_copy(0, idx, new), kf, new_kf)
-                keyframe_pose = _where_pose(pending, new_current, keyframe_pose)
-                switched, pending = pending, no_switch
+                keyframe_pose = _where_pose(switch_mask, new_current, keyframe_pose)
+                if reloc_on:
+                    _ring_write(ring, idx, kf, new_current)
+                switched, pending = switch_mask, (pending & ~switch_mask) if reloc_on else no_switch
+        relocalized = no_switch
+        if reloc_on:
+            new_current, kf, keyframe_pose, relocalized = _recover_lost(
+                config, lost, pyrs, ring, new_current, kf, keyframe_pose
+            )
         if vel:
-            # across a failed lane the motion is unreliable: zero velocity next
-            prev = _where_pose(result.failed, new_current, current)
+            # across a failed, lost or relocalized lane the motion is
+            # unreliable: zero velocity next
+            reset = (result.failed | lost | relocalized) if reloc_on else result.failed
+            prev = _where_pose(reset, new_current, current)
         current = new_current
         poses.append(current)
         results.append(result)
         switches.append(switched)
+        recoveries.append(relocalized)
 
-    switched = torch.stack(switches)
     diags = StepDiagnostics(
         flow=torch.stack([r.flow for r in results]),
         failed=torch.stack([r.failed for r in results]),
-        switched=switched,
-        relocalized=torch.zeros_like(switched),
+        switched=torch.stack(switches),
+        relocalized=torch.stack(recoveries),
         nb_iters=torch.stack([r.nb_iters for r in results]),
     )
     stacked = Pose(torch.stack([p.q for p in poses]), torch.stack([p.t for p in poses]))
@@ -287,6 +415,8 @@ def batched_track_sequence(
         outs = outs + (pending,)
     if return_prev:
         outs = outs + (prev if vel else current,)
+    if reloc_on:
+        outs = outs + (ring,)
     return outs
 
 
@@ -301,11 +431,6 @@ def outputs_to_numpy(poses: Pose, diags: StepDiagnostics):
         flow=rest[..., 0], failed=rest[..., 1] != 0, switched=rest[..., 2] != 0,
         relocalized=rest[..., 3] != 0, nb_iters=rest[..., 4:].astype(np.int32),
     )
-
-
-def batched_init_ring(*_args, **_kwargs):
-    """In-scan relocalization is not ported yet (ROADMAP A9)."""
-    raise NotImplementedError("the relocalization ring (RelocRing) is not ported yet: ROADMAP A9")
 
 
 def make_sharded_step(*_args, **_kwargs):
