@@ -8,8 +8,8 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
 (non-zero exit, no result line) unless every phase passes:
 
 0. Build the CUDA sources (``csrc/residual_reduce.cu``, ``csrc/lm_solve.cu``
-   and the empty kernel ``csrc/launch_floor.cu``), one ``nvcc`` each, all
-   started together.
+   and the empty kernel ``csrc/launch_floor.cu``), one ``nvcc`` each, and
+   the PNG library ``csrc/vors_io.cpp`` with ``g++``, all started together.
 1. Hold the fused LM evaluation ``residual_reduce`` against its plain torch
    twin at every level shape of a 640x480 keyframe (at the level caps and at
    the buckets the tracker slices them to), at a ragged candidate count and
@@ -65,6 +65,22 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    launches a frame, only that lane relocalized, no other lane failed, a
    steady frame without a host read under CUDA's sync debug mode; wall
    times against the same options without the ring and the default.
+8. The front end from files (phase 0 also builds the port's PNG library,
+   ``csrc/vors_io.cpp``, with ``g++``; it must load).  (a) The library must
+   be available.  (b) Phase 4's 41 frames and ground truth written as PNGs
+   by the port's writer, read back bit-equal; decode ms per depth+gray pair
+   on one thread and through the prefetching loader.  (c) ``vors_track fr1``
+   through its ``main`` on the files: the 40 poses bit-equal to phase 4's
+   and six solver launches a frame; its wall and ``--metrics`` times beside
+   phase 4's.  (d) ``--save-state`` after frame 20 and ``--resume`` to frame
+   40, with and without the velocity carry: bit-equal to the uninterrupted
+   runs; the checkpoint's bytes and save and load ms.  (e) ``--chunk 8``:
+   bit-equal to the streaming CLI with ``--no-bucket``, within phase 4's
+   tolerance of (c).  (f) ``vors_batch`` on phase 6's 32 lanes as PNGs with
+   ``--chunk 8 --switch-cadence 4 --relocalize 4``: every lane's file of a
+   run split at frame 5 by ``--save-state``/``--resume`` equal to the
+   straight run's.  (g) ``vors_eval`` on (c)'s trajectory: the ATE equal to
+   phase 4's to 1e-9 relative.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
@@ -150,6 +166,12 @@ OPTION_PROFILED_FRAMES = 10  # the last frames of a run, under the profiler
 # steps (Huber follows four back without a relocalization) and returned on
 # frame 8 to where it was on frame 1
 BATCH_KIDNAP_LANE, BATCH_KIDNAP_STEPS = 5, 6
+# phase 8: the front end from files
+NATIVE = "vors_io"  # the port's PNG library, host C++ (csrc/vors_io.cpp)
+RESUME_AT = 20  # the streaming CLI saves after frame 20 and resumes from there
+LANE_SPLIT = 5  # the batch CLI saves after frame 5 (--max-frames) and resumes
+PREFETCH_THREADS = 4
+CKPT_REPS = 5  # timed saves and loads of a checkpoint
 
 
 def drift_grays(grays):
@@ -1208,6 +1230,272 @@ def phase_option_batched(card, intrinsics, depths_np, grays_np, dev):
     return huber
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the front end from files
+# ---------------------------------------------------------------------------
+
+
+def _cli(main, argv):
+    """Runs a CLI's ``main(argv)``; returns (stdout, stderr, seconds) and
+    fails unless it exits with 0."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    seconds = time.perf_counter() - start
+    if rc != 0:
+        raise AssertionError(f"{main.__module__} {' '.join(argv)} exited {rc}:\n{err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue(), seconds
+
+
+def _poses_of(text):
+    """The (F, 7) [q, t] float32 poses of a TUM trajectory text."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+
+    return torch.stack([torch.cat([f.pose.q, f.pose.t]) for f in tum_rgbd.parse_trajectory(text)])
+
+
+def _write_subset(path, assoc_lines, first, last):
+    with open(path, "w") as f:
+        f.write("\n".join(assoc_lines[first:last + 1]) + "\n")
+    return path
+
+
+def _decode_report(assocs, seq_depths, seq_grays):
+    """(b): the native readers bit-equal to the arrays; ms per depth+gray
+    pair on one thread and through the prefetching loader."""
+    import numpy as np
+
+    from visual_odometry_rs_tpu_torch import native
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+
+    start = time.perf_counter()
+    for a, depth, gray in zip(assocs, seq_depths, seq_grays):
+        if not (np.array_equal(native.read_png_16bits(a.depth_file_path), depth)
+                and np.array_equal(native.read_gray(a.color_file_path), gray)):
+            raise AssertionError(f"PNG round trip differs at {a.depth_file_path}")
+    single_ms = 1e3 * (time.perf_counter() - start) / len(assocs)
+    start = time.perf_counter()
+    frames = list(tum_rgbd.frame_loader(assocs, num_threads=PREFETCH_THREADS))
+    prefetch_ms = 1e3 * (time.perf_counter() - start) / len(assocs)
+    if not all(np.array_equal(d, depth) and np.array_equal(g, gray)
+               for (d, g), depth, gray in zip(frames, seq_depths, seq_grays)):
+        raise AssertionError("the prefetching loader's frames differ from the arrays")
+    return single_ms, prefetch_ms
+
+
+def phase_front_end(seq, trk4, poses4, seconds4, ate4, lane_depths, lane_grays, dev):
+    """Phase 8; returns the ``lm_solve_level`` launches of the streaming
+    CLIs and of the batch CLI."""
+    import json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch import native
+    from visual_odometry_rs_tpu_torch.cli import vors_batch, vors_eval, vors_track
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, residual
+    from visual_odometry_rs_tpu_torch.parallel import batch
+    from visual_odometry_rs_tpu_torch.utils import checkpoint
+
+    # (a) the native loader: the card's machine has no libpng headers, and a
+    # failed build would leave the readers on PIL
+    if not native.available():
+        raise AssertionError("the native PNG library did not build or load")
+    root = tempfile.mkdtemp(prefix="chip_smoke_files_")
+    try:
+        # (b) phase 4's sequence as PNGs, written by the port
+        start = time.perf_counter()
+        assoc = tum_rgbd.write_sequence(os.path.join(root, "seq"), seq.grays[:FRAMES], seq.depths[:FRAMES],
+                                        seq.timestamps[:FRAMES])
+        write_s = time.perf_counter() - start
+        assocs = tum_rgbd.load_associations(assoc)
+        pair_bytes = np.mean([os.path.getsize(a.depth_file_path) + os.path.getsize(a.color_file_path)
+                              for a in assocs])
+        single_ms, prefetch_ms = _decode_report(assocs, seq.depths[:FRAMES], seq.grays[:FRAMES])
+        print(f"PNG files: {FRAMES} depth+gray pairs written in {write_s:.2f} s, {pair_bytes / 1e3:.1f} kB a "
+              f"pair, read back bit-equal; decode {single_ms:.3f} ms a pair on one thread, {prefetch_ms:.3f} ms a "
+              f"pair through the prefetching loader ({PREFETCH_THREADS} threads)")
+        lines = open(assoc).read().splitlines()[1:]  # without the comment
+        ground_truth = os.path.join(root, "groundtruth.txt")
+        with open(ground_truth, "w") as f:
+            f.write("\n".join(tum_rgbd.Frame(timestamp=a.depth_timestamp, pose=p).to_string()
+                              for a, p in zip(assocs, seq.poses[:FRAMES])) + "\n")
+
+        device_flags = [] if dev.type == "cuda" else ["--cpu"]
+        flags = [*device_flags, "--nb-levels", str(LEVELS), "--candidate-cap", str(CAP)]
+        ref = torch.stack([torch.cat([p.q, p.t]) for p in poses4[1:]])
+        stream_launches = 0
+
+        def track(argv, expect_frames):
+            nonlocal stream_launches
+            lm_solve.lm_solve_level.launches = 0
+            residual.residual_reduce.launches = 0
+            out, err, seconds = _cli(vors_track.main, ["fr1", *argv])
+            launches = lm_solve.lm_solve_level.launches
+            stream_launches += launches
+            if dev.type == "cuda" and (launches != LEVELS * expect_frames or residual.residual_reduce.launches):
+                raise AssertionError(f"vors_track {argv[1:]}: {launches} solver launches for {expect_frames} "
+                                     f"frames, {residual.residual_reduce.launches} residual_reduce")
+            return out, err, seconds
+
+        # (c) vors_track on the files: phase 4's configuration and frames;
+        # the time the tracking loop waits for each decoded frame is measured
+        # around the loader's iterator
+        waits, real_loader = [], tum_rgbd.frame_loader
+
+        def timed_loader(assocs_, **kwargs):
+            frames = real_loader(assocs_, **kwargs)
+            while True:
+                start = time.perf_counter()
+                item = next(frames, None)
+                if item is None:
+                    return
+                waits.append(time.perf_counter() - start)
+                yield item
+
+        tum_rgbd.frame_loader = timed_loader
+        try:
+            out_c, err_c, wall_c = track([assoc, *flags, "--metrics"], FRAMES - 1)
+        finally:
+            tum_rgbd.frame_loader = real_loader
+        poses_c = _poses_of(out_c)
+        if not torch.equal(poses_c, ref):
+            raise AssertionError(f"vors_track from files vs phase 4: max diff {float((poses_c - ref).abs().max())}")
+        records = [json.loads(x) for x in err_c.splitlines() if x.startswith("{")]
+        track_ms = [1e3 * r["track_seconds"] for r in records[:-1]]
+        steady, steady4 = track_ms[1:], [1e3 * x for x in seconds4[1:]]
+        print(f"vors_track fr1 from files: {FRAMES - 1} poses bit-equal to phase 4's Tracker, "
+              f"{LEVELS * (FRAMES - 1)} solver launches; wall {1e3 * wall_c:.1f} ms = "
+              f"{1e3 * wall_c / (FRAMES - 1):.3f} ms a frame, of which Tracker.track {sum(track_ms):.1f} ms "
+              f"(--metrics; median {statistics.median(steady):.3f} ms, mean {statistics.mean(steady):.3f} ms over "
+              f"frames 2..{FRAMES - 1}, against phase 4's median {statistics.median(steady4):.3f} ms and mean "
+              f"{statistics.mean(steady4):.3f} ms), waiting for decoded frames {1e3 * sum(waits):.1f} ms (the first "
+              f"{1e3 * waits[0]:.2f} ms, the rest median {1e3 * statistics.median(waits[1:]):.3f} ms, max "
+              f"{1e3 * max(waits[1:]):.3f} ms), the rest {1e3 * (wall_c - sum(waits)) - sum(track_ms):.1f} ms "
+              f"(start-up, output); session {records[-1]}")
+
+        # (d) resume in the streaming CLI, without and with the velocity carry
+        first = _write_subset(os.path.join(root, "seq", "first.txt"), lines, 0, RESUME_AT)
+        rest = _write_subset(os.path.join(root, "seq", "rest.txt"), lines, RESUME_AT, FRAMES - 1)
+        ckpt = os.path.join(root, "tracker.npz")
+        for warm in ("constant_position", "constant_velocity"):
+            warm_flags = [*flags, "--warm-start", warm]
+            straight = out_c if warm == "constant_position" else track([assoc, *warm_flags], FRAMES - 1)[0]
+            out1 = track([first, *warm_flags, "--save-state", ckpt], RESUME_AT)[0]
+            out2, err2, _ = track([rest, *warm_flags, "--resume", ckpt], FRAMES - 1 - RESUME_AT)
+            if "warning" in err2 or out1 + out2 != straight:
+                raise AssertionError(f"vors_track --save-state/--resume ({warm}) differs from the straight run")
+            print(f"vors_track --save-state after frame {RESUME_AT}, --resume to frame {FRAMES - 1} ({warm}): "
+                  f"{FRAMES - 1} poses bit-equal to the uninterrupted run")
+        save_ms, load_ms = [], []
+        for _ in range(CKPT_REPS):
+            start = time.perf_counter()
+            checkpoint.save_tracker(ckpt, trk4)
+            save_ms.append(1e3 * (time.perf_counter() - start))
+            start = time.perf_counter()
+            checkpoint.load_tracker(ckpt, trk4)
+            _sync(dev)
+            load_ms.append(1e3 * (time.perf_counter() - start))
+        print(f"tracker checkpoint ({WIDTH}x{HEIGHT}, bucketed keyframe): {os.path.getsize(ckpt)} bytes; save "
+              f"{statistics.median(save_ms):.3f} ms, load {statistics.median(load_ms):.3f} ms (median of {CKPT_REPS})")
+
+        # (e) the clip mode: bit-equal to the streaming CLI without bucketing,
+        # within phase 4's tolerances of the bucketed run
+        unbucketed = track([assoc, *flags, "--no-bucket"], FRAMES - 1)[0]
+        out_e, _, wall_e = track([assoc, *flags, "--chunk", str(LANE_CHUNK)], FRAMES - 1)
+        if out_e != unbucketed:
+            raise AssertionError("vors_track --chunk differs from the streaming CLI with --no-bucket")
+        diff = float((_poses_of(out_e) - poses_c).abs().max())
+        if not diff <= POSE_ATOL:
+            raise AssertionError(f"vors_track --chunk vs the bucketed run: {diff} > {POSE_ATOL}")
+        print(f"vors_track --chunk {LANE_CHUNK}: bit-equal to --no-bucket, max |d| {diff:.3e} from the bucketed "
+              f"run (atol {POSE_ATOL}); wall {1e3 * wall_e / (FRAMES - 1):.3f} ms a frame")
+
+        # (f) vors_batch on phase 6's lanes from files, straight and split by a resume
+        start = time.perf_counter()
+        lane_assocs = [
+            tum_rgbd.write_sequence(os.path.join(root, f"lane{b:02d}"), lane_grays[:, b], lane_depths[:, b],
+                                    np.arange(LANE_FRAMES + 1) / 30.0)
+            for b in range(LANES)
+        ]
+        print(f"{LANES} lanes x {LANE_FRAMES + 1} frames written as PNGs in {time.perf_counter() - start:.1f} s")
+        batch_flags = [*device_flags, "--nb-levels", str(LEVELS), "--candidate-cap", str(LANE_CAP), "--chunk",
+                       str(LANE_CHUNK), "--switch-cadence", "4", "--relocalize", str(RELOC_WINDOW)]
+        batch_ckpt = os.path.join(root, "batch.npz")
+        batch_launches, walls = 0, {}
+        for name, extra in (("straight", []), ("split", ["--max-frames", str(LANE_SPLIT), "--save-state", batch_ckpt]),
+                            ("resumed", ["--resume", batch_ckpt])):
+            lm_solve.lm_solve_level.launches = 0
+            out_dir = os.path.join(root, "straight" if name == "straight" else "split")
+            _, err, walls[name] = _cli(vors_batch.main, ["fr1", *lane_assocs, "--out-dir", out_dir, *batch_flags,
+                                                         *extra])
+            batch_launches += lm_solve.lm_solve_level.launches
+        for b in range(LANES):
+            name = f"lane{b:02d}.txt"
+            a, c = (open(os.path.join(root, d, name)).read() for d in ("straight", "split"))
+            if a != c or len(a.splitlines()) != LANE_FRAMES:
+                raise AssertionError(f"vors_batch lane {b}: the resumed trajectory differs from the straight one")
+        if dev.type == "cuda" and batch_launches != 2 * 2 * LEVELS * LANE_FRAMES:
+            raise AssertionError(f"vors_batch: {batch_launches} solver launches, expected "
+                                 f"{2 * 2 * LEVELS * LANE_FRAMES} (two runs of {LANE_FRAMES} frames, 12 a frame)")
+        config = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=LANE_CAP,
+                                           relocalize_window=RELOC_WINDOW)
+        intrinsics = tum_rgbd.scaled_intrinsics("fr1", HEIGHT, WIDTH)
+        live = batch.batched_init_state(config, intrinsics, lane_depths[0], lane_grays[0], device=dev)
+        live_ring = batch.batched_init_ring(config, live)
+        save_ms, load_ms = [], []
+        for _ in range(CKPT_REPS):
+            start = time.perf_counter()
+            state, pending, ring, done, lane_ts, _ = checkpoint.load_batch(
+                batch_ckpt, live, live_ring, config, intrinsics, 4)
+            _sync(dev)
+            load_ms.append(1e3 * (time.perf_counter() - start))
+            start = time.perf_counter()
+            checkpoint.save_batch(batch_ckpt, state, pending, ring, done, config, intrinsics, 4, lane_ts)
+            save_ms.append(1e3 * (time.perf_counter() - start))
+        print(f"vors_batch, {LANES} lanes from files, --chunk {LANE_CHUNK} --switch-cadence 4 --relocalize "
+              f"{RELOC_WINDOW}: every lane's trajectory bit-equal between the straight run and the run split at "
+              f"frame {LANE_SPLIT} by --save-state/--resume; {batch_launches} solver launches; wall straight "
+              f"{walls['straight']:.2f} s, split {walls['split']:.2f} + {walls['resumed']:.2f} s; batch checkpoint "
+              f"(ring of {RELOC_WINDOW}) {os.path.getsize(batch_ckpt)} bytes, save {statistics.median(save_ms):.1f} "
+              f"ms, load {statistics.median(load_ms):.1f} ms (median of {CKPT_REPS})")
+
+        # (g) vors_eval on (c)'s trajectory, with frame 0's identity pose
+        # first, as phase 4's ATE counts it
+        trajectory = os.path.join(root, "trajectory.txt")
+        with open(trajectory, "w") as f:
+            f.write(tum_rgbd.Frame(timestamp=assocs[0].depth_timestamp, pose=poses4[0]).to_string() + "\n" + out_c)
+        out_g, _, _ = _cli(vors_eval.main, [ground_truth, trajectory])
+        printed = json.loads(out_g)
+        gt, est = (tum_rgbd.parse_trajectory(open(p).read()) for p in (ground_truth, trajectory))
+        exact = vors_eval.evaluate(gt, est, vors_eval.associate(gt, est, 0.02))
+        if (printed["matched_frames"] != FRAMES or abs(exact["ate_rmse_m"] - ate4) > 1e-9 * ate4
+                or printed["ate_rmse_m"] != round(ate4, 6)):
+            raise AssertionError(f"vors_eval {printed} (unrounded {exact['ate_rmse_m']}) vs phase 4's ATE {ate4}")
+        print(f"vors_eval: {out_g.strip()}; ATE {exact['ate_rmse_m']:.9e} m = phase 4's {ate4:.9e} m")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return stream_launches, batch_launches
+
+
+
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
 def main() -> int:
     try:
         import torch
@@ -1231,10 +1519,10 @@ def main() -> int:
     card = _card_line()
     print(f"card: {card}")
 
-    # phase 0: build
+    # phase 0: build the kernels and the PNG library
     start = time.perf_counter()
-    built = build.build_all(SOURCES)
-    print(f"kernel build: {len(SOURCES)} sources in parallel, {time.perf_counter() - start:.2f} s")
+    built = build.build_all(SOURCES + (NATIVE,))
+    print(f"build: {len(SOURCES)} CUDA sources and {NATIVE}.cpp in parallel, {time.perf_counter() - start:.2f} s")
     for name, (_, build_s, ptxas) in built.items():
         print(f"  {name}: {build_s:.2f} s")
         for line in ptxas.splitlines():
@@ -1343,6 +1631,13 @@ def main() -> int:
     option_solves["huber"] = option_solves.get("huber", 0) + phase_option_batched(
         card, lane_intrinsics, lane_depths, lane_grays, dev)
     print(f"phase 7 (options): {time.perf_counter() - seven:.1f} s")
+
+    # phase 8: the front end from files
+    eight = time.perf_counter()
+    cli_launches, batch_cli_launches = phase_front_end(seq, trk, poses, seconds, err, lane_depths, lane_grays, dev)
+    solve_launches += cli_launches
+    lane_row["launches"] += batch_cli_launches
+    print(f"phase 8 (the front end from files): {time.perf_counter() - eight:.1f} s")
 
     def row(rows):  # level 0 as the tracker buckets it
         return next(r for r in rows if r["level"] == 0 and r["shape"] == "bucket")

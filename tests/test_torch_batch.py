@@ -317,18 +317,18 @@ def test_vors_batch_cpu(tmp_path):
 
 
 def test_vors_batch_refuses_what_is_not_ported(tmp_path):
-    """Only ``--save-state``/``--resume`` (ROADMAP A10) and the sharded step
-    (A12) are left; a ring without a window and the host-recursion ``dso``
-    selector raise in the batched driver, as in the JAX package."""
-    args = ["fr1", "/nonexistent/associations.txt", "--out-dir", str(tmp_path)]
+    """What the batched tracker refuses, as the JAX package does: a ring
+    without a window and the host-recursion ``dso`` selector; the sharded
+    step (ROADMAP A12) raises; the CLI exits 1 on a missing file, also for
+    ``--save-state``/``--resume``, which are ported."""
+    args = ["fr1", "/nonexistent/associations.txt", "--out-dir", str(tmp_path), "--cpu"]
     with redirect_stderr(io.StringIO()) as err:
-        for flag in (["--save-state", "x.npz"], ["--resume", "x.npz"]):
+        for flag in ([], ["--save-state", "x.npz"], ["--resume", "x.npz"]):
             assert vors_batch.main([*args, *flag]) == 1
-        assert vors_batch.main([*args, "--cpu"]) == 1  # no such file
-    assert "ROADMAP A10" in err.getvalue()
+    assert "Cannot read associations" in err.getvalue() and "ROADMAP" not in err.getvalue()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
-            vors_batch.main(args)
+            vors_batch.main(args[:-1])
     with pytest.raises(ValueError, match="relocalize_window"):
         tbatch.batched_track_sequence(CONFIG, None, None, None, None, reloc_ring=object())
     with pytest.raises(ValueError, match="relocalize_window"):

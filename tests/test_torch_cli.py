@@ -7,9 +7,13 @@
   same arguments (bit-equal images; poses at ``rtol=1e-6``).
 - TUM parsing, the trajectory line (qw last) and the intrinsics presets:
   equal; ATE: ``rtol=1e-9`` (both are numpy f64).
+- ``vors_track --metrics``, ``--save-state``/``--resume`` and ``--chunk``,
+  ``vors_batch --save-state``/``--resume``: the port alone, bit-equal to
+  the uninterrupted and streaming runs.
 """
 
 import io
+import json
 from contextlib import redirect_stderr, redirect_stdout
 from types import SimpleNamespace
 
@@ -169,3 +173,113 @@ def test_interop_roundtrip():
         for x, y in zip(a[1:], b[1:]):
             assert x.dtype == y.dtype and torch.equal(x, y)
         assert torch.equal(a.intrinsics.vector(), b.intrinsics.vector())
+
+
+# ---------------------------------------------------------------------------
+# --metrics, --save-state/--resume and --chunk (the port alone; the CPU path
+# is deterministic, so resumed and clip runs are held bit-equal)
+# ---------------------------------------------------------------------------
+
+CLI_FLAGS = ["--cpu", "--nb-levels", "3", "--candidate-cap", "256"]
+
+
+def _run(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+@pytest.fixture(scope="module")
+def cli_seq(tmp_path_factory):
+    """Seven frames at 48x64 with keyframe switches; the associations file
+    and its two halves split at frame 3 (frames 0-3 and 3-6)."""
+    seq = tsyn.generate_sequence(nb_frames=7, height=48, width=64, seed=3,
+                                 twist_per_frame=[0.05, 0.0, 0.0, 0.0, 0.004, 0.0])
+    directory = tmp_path_factory.mktemp("cli") / "seq"
+    assoc = ttum.write_sequence(str(directory), seq.grays, seq.depths, seq.timestamps)
+    lines = open(assoc).read().splitlines()[1:]
+    halves = []
+    for name, part in (("first.txt", lines[:4]), ("rest.txt", lines[3:])):
+        (directory / name).write_text("\n".join(part) + "\n")
+        halves.append(str(directory / name))
+    return assoc, halves
+
+
+@pytest.mark.parametrize("warm_start", ["constant_position", "constant_velocity"])
+def test_vors_track_resume_is_bit_equal(cli_seq, tmp_path, warm_start):
+    assoc, (first, rest) = cli_seq
+    flags = [*CLI_FLAGS, "--warm-start", warm_start]
+    ckpt = str(tmp_path / "state.npz")
+    rc, full, _ = _run(tcli.main, ["fr1", assoc, *flags])
+    rc1, out1, _ = _run(tcli.main, ["fr1", first, *flags, "--save-state", ckpt])
+    rc2, out2, err2 = _run(tcli.main, ["fr1", rest, *flags, "--resume", ckpt])
+    assert rc == rc1 == rc2 == 0 and "warning" not in err2
+    assert out1 + out2 == full and len(full.splitlines()) == 6
+    rc, out, err = _run(tcli.main, ["fr1", assoc, *flags, "--resume", ckpt])
+    assert rc == 0 and "tracked twice" in err  # the whole file again after a resume
+    rc, _, err = _run(tcli.main, ["fr1", rest, *flags, "--robust-delta", "10", "--resume", ckpt])
+    assert rc == 1 and "Cannot resume" in err and "fingerprint" in err
+    rc, _, err = _run(tcli.main, ["fr1", rest, *flags, "--resume", str(tmp_path / "missing.npz")])
+    assert rc == 1 and "Cannot read checkpoint" in err
+
+
+def _metrics(err):
+    records = [json.loads(line) for line in err.splitlines() if line.startswith("{")]
+    return records[:-1], records[-1]
+
+
+@pytest.mark.parametrize("chunk", [0, 3])
+def test_vors_track_metrics_and_chunk(cli_seq, chunk):
+    """``--metrics`` in streaming and clip mode; ``--chunk 3`` prints the
+    lines of the streaming tracker without bucketing (the batched tracker's
+    static caps)."""
+    assoc, _ = cli_seq
+    rc, out, err = _run(tcli.main, ["fr1", assoc, *CLI_FLAGS, "--no-bucket", "--chunk", str(chunk), "--metrics"])
+    assert rc == 0
+    frames, summary = _metrics(err)
+    assert [f["frame_index"] for f in frames] == list(range(1, 7))
+    assert set(frames[0]) == {"frame_index", "timestamp", "optical_flow", "keyframe_switched", "failed",
+                              "track_seconds"}
+    assert summary["frames"] == 6 and summary["failures"] == 0
+    assert summary["keyframe_switches"] == sum(f["keyframe_switched"] for f in frames) >= 1
+    assert [f["timestamp"] for f in frames] == [float(line.split()[0]) for line in out.splitlines()]
+    _, streaming, _ = _run(tcli.main, ["fr1", assoc, *CLI_FLAGS, "--no-bucket"])
+    assert out == streaming
+
+
+@pytest.mark.parametrize("flags, match", [
+    (["--candidate-selector", "dso"], "dso"), (["--save-state", "x.npz"], "--save-state"),
+    (["--resume", "x.npz"], "--resume"), (["--relocalize", "2"], "--relocalize"),
+])
+def test_vors_track_chunk_refusals(cli_seq, flags, match):
+    rc, out, err = _run(tcli.main, ["fr1", cli_seq[0], *CLI_FLAGS, "--chunk", "3", *flags])
+    assert rc == 1 and out == "" and match in err and "--chunk" in err
+
+
+def test_vors_batch_resume_is_bit_equal(tmp_path):
+    """Two lanes of different lengths, cadence 2, a ring and the velocity
+    carry: a run split by ``--max-frames``/``--save-state``/``--resume``
+    writes the files of the straight run; a resume with other files is
+    refused."""
+    assocs = []
+    for i, twist in enumerate(([0.05, 0.0, 0.0, 0.0, 0.004, 0.0], [0.0, 0.04, 0.01, 0.0, 0.0, 0.002])):
+        seq = tsyn.generate_sequence(nb_frames=8 - i, height=48, width=64, seed=3 + i, twist_per_frame=twist)
+        assocs.append(ttum.write_sequence(str(tmp_path / f"s{i}"), seq.grays, seq.depths, seq.timestamps))
+    flags = [*CLI_FLAGS, "--chunk", "3", "--switch-cadence", "2", "--relocalize", "2",
+             "--warm-start", "constant_velocity"]
+    ckpt = str(tmp_path / "batch.npz")
+    assert _run(vors_batch.main, ["fr1", *assocs, "--out-dir", str(tmp_path / "straight"), *flags])[0] == 0
+    split = ["fr1", *assocs, "--out-dir", str(tmp_path / "split"), *flags, "--save-state", ckpt]
+    assert _run(vors_batch.main, [*split, "--max-frames", "4"])[0] == 0
+    rc, _, err = _run(vors_batch.main, [*split, "--resume", ckpt])
+    assert rc == 0 and "resumed 2 lanes at global frame 4" in err
+    for name, frames in (("s0.txt", 7), ("s1.txt", 6)):
+        straight = (tmp_path / "straight" / name).read_text()
+        assert (tmp_path / "split" / name).read_text() == straight and len(straight.splitlines()) == frames
+    out = ["--out-dir", str(tmp_path / "other"), *flags, "--resume", ckpt]
+    rc, _, err = _run(vors_batch.main, ["fr1", *assocs[::-1], *out])
+    assert rc == 1 and "lane 0" in err and "does not match" in err
+    rc, _, err = _run(vors_batch.main, ["fr1", assocs[0], assocs[0], assocs[1], *out])
+    assert rc == 1 and "batch size" in err
+

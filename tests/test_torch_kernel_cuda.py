@@ -14,7 +14,8 @@ Cholesky), so ``t`` to ``atol=1e-5`` m, ``q`` to ``atol=1e-6``, the energy
 to ``rtol=1e-3``, ``failed`` equal and ``nb_iter`` within 1 (one
 accept/continue decision may flip within an ulp of ``energy_tol``).
 ``track_frame`` on the card against the CPU within the LM stopping basin
-(``t`` to ``atol=5e-3``).
+(``t`` to ``atol=5e-3``).  The native PNG loader and a resumed ``Tracker``
+on the card: bit-equal.
 """
 
 import numpy as np
@@ -473,3 +474,61 @@ def test_ring_recovery_makes_no_host_read(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert lm_solve.lm_solve_level.launches - before == 2 * LEVELS  # the frame's and the recovery's
     assert not diags.relocalized.any() and torch.equal(ring_out.count, ring.count)
+
+
+def test_native_loader_on_the_card_machine(cuda_device, tmp_path):
+    """The port's PNG library builds where the card is, and a written
+    sequence comes back bit-equal through the readers and the prefetching
+    loader; the frames feed the tracker on the card."""
+    from visual_odometry_rs_tpu_torch import native
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+
+    assert native.available()
+    seq = synthetic.generate_sequence(nb_frames=4, height=H, width=W, seed=2)
+    assocs = tum_rgbd.load_associations(
+        tum_rgbd.write_sequence(str(tmp_path), seq.grays, seq.depths, seq.timestamps)
+    )
+    frames = list(tum_rgbd.frame_loader(assocs, num_threads=4))
+    for (depth, gray), d, g in zip(frames, seq.depths, seq.grays):
+        np.testing.assert_array_equal(depth, d)
+        np.testing.assert_array_equal(gray, g)
+    trk = tracker.init_tracker(tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP),
+                               seq.intrinsics, 0.0, frames[0][0], 0.0, frames[0][1], device=cuda_device)
+    trk.track(1.0, frames[1][0], 1.0, frames[1][1])
+    assert not trk.last_failed
+
+
+@pytest.mark.parametrize("warm_start", ["constant_position", "constant_velocity"])
+def test_resumed_cuda_tracker_is_bit_equal(cuda_device, tmp_path, warm_start):
+    """A CUDA ``Tracker`` saved after 3 frames and restored into a new one
+    tracks the next 3 frames bit-equal to the uninterrupted tracker: the
+    keyframe comes back to the card, the poses to the host."""
+    from visual_odometry_rs_tpu_torch.utils import checkpoint
+
+    seq = synthetic.generate_sequence(nb_frames=7, height=H, width=W, seed=1,
+                                      twist_per_frame=[0.03, 0.0, 0.0, 0.0, 0.003, 0.0])
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP,
+                                   bucket_candidates=True, warm_start=warm_start)
+
+    def new():
+        return tracker.init_tracker(config, seq.intrinsics, 0.0, seq.depths[0], 0.0, seq.grays[0],
+                                    device=cuda_device)
+
+    def track(trk, frames):
+        out = []
+        for f in frames:
+            trk.track(float(f), seq.depths[f], float(f), seq.grays[f])
+            out.append(torch.cat(trk.current_frame()[1]))
+        return torch.stack(out)
+
+    trk = new()
+    track(trk, range(1, 4))
+    path = str(tmp_path / "tracker.npz")
+    checkpoint.save_tracker(path, trk)
+    ref = track(trk, range(4, 7))
+    resumed = new()
+    checkpoint.load_tracker(path, resumed)
+    assert resumed.keyframe_data.levels[0].xs.device.type == "cuda"
+    assert resumed.current_pose.q.device.type == "cpu"
+    assert torch.equal(track(resumed, range(4, 7)), ref)
+    assert resumed.keyframe_switches == trk.keyframe_switches >= 1

@@ -4,15 +4,20 @@ Direct RGB-D visual odometry: candidate points on a keyframe, aligned to each
 new frame by a coarse-to-fine Levenberg-Marquardt solve over an se(3) warp.
 The layout mirrors the JAX package, so each module has a counterpart there:
 
-- ``utils``   : dtype policy and device resolution
+- ``utils``   : dtype policy and device resolution, checkpoints, metrics,
+                tracing and profiling
 - ``math``    : pose algebra, so3/se3, the LM optimizer harness
-- ``ops``     : mean pyramid, gradients, bilinear sampling, and the fused LM
-                evaluation (``ops.residual``: a CUDA kernel and its torch twin)
-- ``core``    : camera model, inverse depth, coarse-to-fine candidates
-- ``models``  : the streaming tracker
+- ``ops``     : mean pyramid, gradients, bilinear sampling, the fused LM
+                evaluation (``ops.residual``) and the per-level LM solver
+                (``ops.lm_solve``): CUDA kernels and their plain versions;
+                ``ops.build`` compiles the native sources of ``csrc/``
+- ``core``    : camera model, inverse depth, candidate selectors
+- ``models``  : the streaming tracker, relocalization
+- ``parallel``: the batched multi-sequence tracker
+- ``native``  : the PNG reader and prefetching frame loader (host C++)
 - ``dataset`` : TUM RGB-D parsing and IO, synthetic sequences
-- ``eval``    : ATE
-- ``cli``     : ``vors_track`` (streaming mode)
+- ``eval``    : ATE and RPE
+- ``cli``     : ``vors_track``, ``vors_batch``, ``vors_eval``
 
 It imports torch and numpy, never jax.
 """

@@ -15,8 +15,20 @@ Pending keyframe switches, the global frame index, the warm-start carry and,
 with ``--relocalize K``, each lane's ring of K keyframes (on the device)
 cross the clip boundaries.  The tracker's options take the JAX CLI's
 defaults; ``--candidate-selector`` takes ``coarse_to_fine`` and
-``dso_fixed`` (``dso`` needs a host recursion per keyframe).  It runs on CUDA unless ``--cpu`` is given, and
-fails if CUDA is absent.  Images are decoded with PIL, one at a time.
+``dso_fixed`` (``dso`` needs a host recursion per keyframe).  It runs on
+CUDA unless ``--cpu`` is given, and fails if CUDA is absent.  Each sequence
+is decoded by its own ``dataset.tum_rgbd.frame_loader`` (the port's native
+PNG library on threads, or PIL where it cannot be built).
+
+``--save-state PATH`` checkpoints the whole batched state after every clip
+(``utils.checkpoint.save_batch``: the keyframes and poses of every lane, the
+pending switches, the global frame index, the warm-start carry and the
+ring); ``--resume PATH`` continues a run on the same association files in
+the same order: the consumed frames are skipped, the trajectory files are
+appended to (cut back first to the checkpoint's frames), and a checkpoint of
+another configuration, cadence, lane count or sequence is refused.  A
+checkpoint of the JAX package's CLI resumes here and the other way round.
+``--max-frames`` cuts a run into such pieces.
 """
 
 from __future__ import annotations
@@ -29,11 +41,6 @@ from . import _common
 from ._common import add_option_flags, option_fields
 
 USAGE = "Usage: vors_batch [fr1|fr2|fr3|icl] associations_file... --out-dir DIR"
-
-# flags of later slices, accepted only at their defaults: the ROADMAP item
-# that ports each
-_LATER = {"save_state": "A10", "resume": "A10"}
-
 
 def _out_name(assoc_path: str) -> str:
     parent = os.path.basename(os.path.dirname(os.path.abspath(assoc_path)))
@@ -92,32 +99,84 @@ def _parser() -> argparse.ArgumentParser:
         "one per pyramid level); default: 20 at every level",
     )
     parser.add_argument("--max-frames", type=int, default=0, metavar="N",
-                        help="stop after the first N frames per sequence (0 = all)")
+                        help="stop after the first N frames per sequence (0 = all); with "
+                        "--save-state/--resume a long run goes in restartable pieces")
     add_option_flags(parser, selectors=("coarse_to_fine", "dso_fixed"))
-    # the flags of _LATER
-    parser.add_argument("--save-state", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--resume", default=None, help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--save-state", metavar="PATH",
+        help="checkpoint the batched state (keyframes, poses, pending switches, frame index, "
+        "warm-start carry, ring) to PATH after every clip; resume with --resume on the same "
+        "association files",
+    )
+    parser.add_argument(
+        "--resume", metavar="PATH",
+        help="continue from a --save-state checkpoint: consumed frames are skipped, trajectory "
+        "files are appended to, and a checkpoint of another configuration, cadence or sequence "
+        "is refused",
+    )
     return parser
+
+
+def _resume(args, all_assocs, names, lengths, state, ring, config, intrinsics):
+    """Loads ``args.resume`` for the live batch.  Returns ``(state, pending,
+    ring, frame_idx, prev)`` or an error message."""
+    from ..utils import checkpoint as checkpoint_mod
+
+    try:
+        state, pending, ring, frame_idx, lane_ts, prev = checkpoint_mod.load_batch(
+            args.resume, state, ring, config, intrinsics, args.switch_cadence
+        )
+    except checkpoint_mod.CheckpointMismatchError as e:
+        return f"Cannot resume: {e}"
+    except (OSError, KeyError, ValueError) as e:
+        return f"Cannot read checkpoint {args.resume}: {e}"
+    if len(lane_ts) != len(all_assocs):
+        return f"Cannot resume: checkpoint has {len(lane_ts)} lanes, {len(all_assocs)} association files given"
+    for b, ts in enumerate(lane_ts):
+        if not checkpoint_mod.sequence_matches(ts, all_assocs[b]):
+            return (f"Cannot resume: lane {b} ({args.associations_files[b]}) does not match the "
+                    "checkpoint's consumed frames; resume with the same association files in the same order")
+    # cut each trajectory file back to the checkpoint's frames: a crash
+    # between a clip's lines and its checkpoint leaves lines past it
+    for b, name in enumerate(names):
+        path = os.path.join(args.out_dir, name)
+        k = min(frame_idx, lengths[b])
+        if not os.path.exists(path):
+            continue
+        with open(path) as fh:
+            lines = fh.readlines()
+        if len(lines) > k:
+            print(f"[{b}] trimmed output lines past the checkpoint in {path}", file=sys.stderr)
+            kept = lines[:k]
+        elif len(lines) == k and lines and not lines[-1].endswith("\n"):
+            print(f"[{b}] dropped a truncated final line in {path}", file=sys.stderr)
+            kept = lines[:-1]  # a line cut short by a crash: that frame's line is lost
+        else:
+            if len(lines) < k:
+                print(f"[{b}] warning: {path} has {len(lines)} lines but the checkpoint consumed {k} "
+                      "frames; earlier output is missing (another --out-dir?)", file=sys.stderr)
+            continue
+        with open(path, "w") as fh:
+            fh.writelines(kept)
+    print(f"resumed {len(all_assocs)} lanes at global frame {frame_idx}", file=sys.stderr)
+    return state, pending, ring, frame_idx, prev
 
 
 def main(argv=None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
-    for name, item in _LATER.items():
-        if getattr(args, name) != parser.get_default(name):
-            flag = "--" + name.replace("_", "-")
-            print(f"{flag} is not ported to the PyTorch package yet (ROADMAP {item})", file=sys.stderr)
-            return 1
     if args.chunk < 1:
         print("--chunk must be >= 1", file=sys.stderr)
         return 1
 
     import numpy as np
+    import torch
 
     from ..dataset import tum_rgbd
     from ..math.pose import Pose
     from ..models import tracker as tracker_mod
     from ..parallel import batch as batch_mod
+    from ..utils import checkpoint as checkpoint_mod
     from ..utils.types import resolve_device
 
     device = resolve_device("cpu" if args.cpu else "cuda")
@@ -169,8 +228,26 @@ def main(argv=None) -> int:
     last = list(first)  # (depth, gray) a finished lane keeps receiving
 
     ring = batch_mod.batched_init_ring(config, state) if config.relocalize_window > 0 else None
-    frame_idx, pending, prev = 0, None, None
-    outs = [open(os.path.join(args.out_dir, n), "w") for n in names]
+    vel_on = config.warm_start == "constant_velocity"
+    frame_idx = 0
+    pending = torch.zeros(nb_lanes, dtype=torch.bool, device=device)
+    prev = state.current_pose  # zero velocity at the start
+    out_mode = "w"
+    if args.resume:
+        resumed = _resume(args, all_assocs, names, lengths, state, ring, config, intrinsics)
+        if isinstance(resumed, str):
+            print(resumed, file=sys.stderr)
+            return 1
+        state, pending, ring, frame_idx, prev_r = resumed
+        if prev_r is not None:
+            prev = prev_r
+        # skip the consumed frames, keeping each lane's last one
+        for b in range(nb_lanes):
+            for _ in range(min(frame_idx, lengths[b])):
+                last[b] = next(loaders[b])
+        out_mode = "a"
+
+    outs = [open(os.path.join(args.out_dir, n), out_mode) for n in names]
     try:
         while frame_idx < max_len:
             n = min(args.chunk, max_len - frame_idx)
@@ -205,6 +282,15 @@ def main(argv=None) -> int:
                     ).to_string()
                     outs[b].write(line + "\n")
             frame_idx += n
+            if args.save_state:
+                for fh in outs:
+                    fh.flush()
+                lane_ts = [[a.depth_timestamp for a in all_assocs[b][: min(frame_idx, lengths[b]) + 1]]
+                           for b in range(nb_lanes)]
+                checkpoint_mod.save_batch(
+                    args.save_state, state, pending, ring, frame_idx, config, intrinsics,
+                    args.switch_cadence, lane_ts, prev_pose=prev if vel_on else None,
+                )
     finally:
         for fh in outs:
             fh.close()

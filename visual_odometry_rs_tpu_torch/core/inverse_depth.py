@@ -1,8 +1,8 @@
-"""Inverse-depth maps with validity states, and the DSO-mean 2x2 fusion.
+"""Inverse-depth maps with validity states, and the two 2x2 fusions.
 
-The port of ``from_depth``, ``masked``, ``fuse_dso_mean`` and
-``pyramid(strategy="dso_mean")`` of
-``visual_odometry_rs_tpu/core/inverse_depth.py`` (inverse_depth.rs:24-98).
+The port of ``from_depth``, ``masked``, ``fuse_dso_mean``,
+``fuse_statistically_similar`` and ``pyramid`` of
+``visual_odometry_rs_tpu/core/inverse_depth.py`` (inverse_depth.rs:24-152).
 The reference's enum {Unknown, Discarded, WithVariance(ρ, σ²)} is three
 dense channels: ``idepth`` (f32), ``variance`` (f32) and a u8 ``state``.
 """
@@ -78,13 +78,52 @@ def fuse_dso_mean(m: InverseDepthMap) -> InverseDepthMap:
     return InverseDepthMap(new_d, new_v, _state(known))
 
 
-def pyramid(m: InverseDepthMap, nb_levels: int):
-    """Multi-resolution inverse-depth pyramid fused with the DSO mean
-    (inverse_compositional.rs:135-138; the JAX ``strategy="dso_mean"``)."""
+def fuse_statistically_similar(m: InverseDepthMap) -> InverseDepthMap:
+    """Halve the resolution with the statistical-compatibility strategy
+    (inverse_depth.rs:105-152).  Over the k known values of each block:
+    ``new_d`` is the inverse-variance weighted mean (through products of the
+    other variances, like the reference), ``new_v = (2/k) mean(v)``, and the
+    block is Discarded unless every input has ``(d_i - new_d)^2 < new_v``.
+    k = 0 is Unknown; k = 1 is WithVariance(d, 2 v), with no gate."""
+    d = torch.stack(block_2x2(m.idepth))
+    v = torch.stack(block_2x2(m.variance))
+    valid = torch.stack(block_2x2(m.state)) == WITH_VARIANCE
+    validf = valid.to(Float)
+    count = validf.sum(dim=0)
+    one = torch.ones_like(v)
+
+    # the product of the other valid variances: invalid slots count as 1
+    v_or_1 = torch.where(valid, v, one)
+    prod_all = torch.prod(v_or_1, dim=0)
+    prod_others = torch.where(valid, prod_all / torch.clamp(v_or_1, min=1e-38), torch.zeros_like(v))
+
+    denom = prod_others.sum(dim=0)
+    new_d = (d * prod_others).sum(dim=0) / torch.where(denom > 0, denom, torch.ones_like(denom))
+    count_1 = torch.clamp(count, min=1.0)
+    mean_v = (v * validf).sum(dim=0) / count_1
+    new_v = torch.where(count > 0, (torch.full_like(count_1, 2.0) / count_1) * mean_v, torch.zeros_like(mean_v))
+
+    all_ok = torch.where(valid, (d - new_d) ** 2 < new_v, torch.ones_like(valid)).all(dim=0)
+    compatible = (count <= 1) | all_ok
+    known = count > 0
+    state = torch.where(
+        known, torch.where(compatible, WITH_VARIANCE, DISCARDED), UNKNOWN
+    ).to(torch.uint8)
+    keep = state == WITH_VARIANCE
+    zero = torch.zeros_like(new_d)
+    return InverseDepthMap(torch.where(keep, new_d, zero), torch.where(keep, new_v, zero), state)
+
+
+def pyramid(m: InverseDepthMap, nb_levels: int, strategy: str = "dso_mean"):
+    """Multi-resolution inverse-depth pyramid (inverse_compositional.rs:
+    135-138), fused with the DSO mean (``"dso_mean"``, the tracker's) or the
+    statistical-compatibility strategy (any other value, as in the JAX
+    module)."""
+    fuse = fuse_dso_mean if strategy == "dso_mean" else fuse_statistically_similar
     levels = [m]
     for _ in range(1, nb_levels):
         h, w = levels[-1].idepth.shape[-2:]
         if h // 2 == 0 or w // 2 == 0:
             break
-        levels.append(fuse_dso_mean(levels[-1]))
+        levels.append(fuse(levels[-1]))
     return levels

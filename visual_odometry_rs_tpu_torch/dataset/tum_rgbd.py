@@ -1,17 +1,20 @@
 """TUM RGB-D dataset: constants, parsers, trajectory lines, image IO.
 
-The port of the streaming tracker's part of
-``visual_odometry_rs_tpu/dataset/tum_rgbd.py`` (reference
+The port of ``visual_odometry_rs_tpu/dataset/tum_rgbd.py`` (reference
 ``src/dataset/tum_rgbd.rs``): depth scale 5000, the intrinsics presets,
-association parsing with ``#`` comments, the TUM trajectory line
-``timestamp tx ty tz qx qy qz qw`` (qw last), PNG IO through PIL and the
-sequential ``frame_loader``.  PIL is imported only inside the IO functions;
-the native prefetching loader is not ported yet.
+association and trajectory parsing with ``#`` comments, the TUM trajectory
+line ``timestamp tx ty tz qx qy qz qw`` (qw last), and PNG IO.  PNGs are
+read by the port's native library (``native``, which ``frame_loader`` uses
+to decode frames ahead on threads) and, where it cannot be built, by PIL,
+with the same arrays.  ``write_sequence`` writes PNGs with the standard
+library's ``zlib`` and needs neither.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from dataclasses import dataclass
 from typing import Iterator, List, Tuple
 
@@ -19,7 +22,7 @@ import numpy as np
 
 from ..core.camera import Intrinsics
 from ..math.pose import Pose
-from ..utils.types import to_numpy
+from ..utils.types import Float, to_numpy
 
 DEPTH_SCALE = 5000.0
 VARIANCE_TUM = 1e-4
@@ -94,6 +97,26 @@ def parse_associations(content: str) -> List[Association]:
     return out
 
 
+def parse_trajectory(content: str) -> List[Frame]:
+    """Parse a TUM trajectory or ground-truth file (tum_rgbd.rs:102-104):
+    ``timestamp tx ty tz qx qy qz qw`` per line, into f32 poses."""
+    import torch
+
+    out = []
+    for line in content.splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        parts = line.split()
+        if len(parts) != 8:
+            raise ValueError(f"Parsing error: {line!r}")
+        ts, tx, ty, tz, qx, qy, qz, qw = (float(p) for p in parts)
+        out.append(Frame(timestamp=ts, pose=Pose(
+            q=torch.tensor([qw, qx, qy, qz], dtype=Float), t=torch.tensor([tx, ty, tz], dtype=Float),
+        )))
+    return out
+
+
 def load_associations(path: str) -> List[Association]:
     """Read and parse, making image paths absolute (vors_track.rs:113-137)."""
     with open(path) as f:
@@ -107,6 +130,10 @@ def load_associations(path: str) -> List[Association]:
 
 def read_png_16bits(path: str) -> np.ndarray:
     """16-bit depth PNG → (H, W) uint16 (helper.rs:13-36)."""
+    from .. import native
+
+    if native.available():
+        return native.read_png_16bits(path)
     from PIL import Image
 
     with Image.open(path) as img:
@@ -122,6 +149,10 @@ def read_png_16bits(path: str) -> np.ndarray:
 def read_gray(path: str) -> np.ndarray:
     """Image → (H, W) uint8 luma with the integer BT.601 weights of the Rust
     ``image`` crate: (299 R + 587 G + 114 B) / 1000."""
+    from .. import native
+
+    if native.available() and path.lower().endswith(".png"):
+        return native.read_gray(path)
     from PIL import Image
 
     with Image.open(path) as img:
@@ -137,27 +168,70 @@ def read_images(assoc: Association) -> Tuple[np.ndarray, np.ndarray]:
     return read_png_16bits(assoc.depth_file_path), read_gray(assoc.color_file_path)
 
 
-def frame_loader(assocs: List[Association]) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """In-order (depth u16, gray u8) frames of a sequence, read one by one
-    on the calling thread (the JAX package's ``frame_loader`` without its
-    native prefetch)."""
+def frame_loader(
+    assocs: List[Association], *, num_threads: int = 4, max_ahead: int = 8
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """In-order (depth u16, gray u8) frames of a sequence.
+
+    With the native library, ``num_threads`` threads decode up to
+    ``max_ahead`` frames ahead (``native.PrefetchLoader``), so decoding
+    overlaps the tracking of the frames before; else the frames are read one
+    by one on the calling thread, with the same arrays."""
+    if not assocs:
+        return
+    from .. import native
+
+    loader = None
+    if native.available():
+        try:
+            h, w = native.png_dims(assocs[0].depth_file_path)
+            loader = native.PrefetchLoader(
+                [a.depth_file_path for a in assocs], [a.color_file_path for a in assocs],
+                h, w, num_threads=num_threads, max_ahead=max_ahead,
+            )
+        except IOError:  # not a PNG: the PIL path reads it
+            loader = None
+    if loader is not None:
+        with loader:
+            yield from loader
+        return
     for a in assocs:
         yield read_images(a)
 
 
-def write_sequence(directory: str, grays: np.ndarray, depths: np.ndarray, timestamps: np.ndarray) -> str:
-    """Write a sequence in the TUM on-disk layout; returns the path of the
-    associations file."""
-    from PIL import Image
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data))
 
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write a (H, W) uint8 or uint16 array as an 8- or 16-bit grayscale PNG
+    (no interlace, filter 0 on every row, zlib's default compression), with
+    the standard library only."""
+    image = np.asarray(image)
+    if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"write_png takes a (H, W) uint8 or uint16 array, got {image.dtype} {image.shape}")
+    h, w = image.shape
+    rows = np.zeros((h, 1 + w * image.itemsize), np.uint8)  # a filter byte (0) per row
+    rows[:, 1:] = image.astype(">u2" if image.dtype == np.uint16 else np.uint8).view(np.uint8).reshape(h, -1)
+    header = struct.pack(">IIBBBBB", w, h, 8 * image.itemsize, 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", header))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes())))
+        f.write(_png_chunk(b"IEND", b""))
+
+
+def write_sequence(directory: str, grays: np.ndarray, depths: np.ndarray, timestamps: np.ndarray) -> str:
+    """Write a sequence in the TUM on-disk layout (16-bit depth and 8-bit gray
+    PNGs, an associations file); returns the associations file's path."""
     os.makedirs(os.path.join(directory, "depth"), exist_ok=True)
     os.makedirs(os.path.join(directory, "rgb"), exist_ok=True)
     lines = []
     for i, ts in enumerate(timestamps):
         dpath = f"depth/{ts:.6f}.png"
         cpath = f"rgb/{ts:.6f}.png"
-        Image.fromarray(depths[i].astype(np.uint16)).save(os.path.join(directory, dpath))
-        Image.fromarray(grays[i].astype(np.uint8), mode="L").save(os.path.join(directory, cpath))
+        write_png(os.path.join(directory, dpath), np.asarray(depths[i]).astype(np.uint16))
+        write_png(os.path.join(directory, cpath), np.asarray(grays[i]).astype(np.uint8))
         lines.append(f"{ts:.6f} {dpath} {ts:.6f} {cpath}")
     assoc_path = os.path.join(directory, "associations.txt")
     with open(assoc_path, "w") as f:

@@ -1,4 +1,12 @@
-"""Profiling on the GPU with ``torch.profiler``.
+"""Tracing and profiling with ``torch.profiler``.
+
+``trace(log_dir)`` and ``annotate(name)`` are the JAX package's hooks
+(``visual_odometry_rs_tpu/utils/profiling.py``): a trace of a block of work
+written as a Chrome trace file that TensorBoard and Perfetto load, and a
+named region in it (and, on CUDA, an NVTX range).  The JAX module's
+``nan_debug`` has no counterpart: torch has no switch that raises on the
+first NaN an operation makes, and the tracker makes NaNs by design (the
+flow of padding candidates, the NaN-energy acceptance).
 
 ``profile_device(fn)`` runs ``fn`` under the profiler and sums up what the
 tracker's metrics read: how many kernels the host launched, how many
@@ -11,9 +19,45 @@ summary for each and the kernels and host operators of a steady frame.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import statistics
 import time
 from typing import Callable, Dict, NamedTuple
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Trace the block with ``torch.profiler`` (host operators and, where
+    CUDA is present, its kernels and copies) and write it to
+    ``log_dir/trace_<pid>_<ns>.pt.trace.json`` when the block ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
+
+
+@contextlib.contextmanager
+def annotate(name: str):
+    """A named region of the trace (``record_function``); on CUDA also an
+    NVTX range, which an external CUDA profiler shows."""
+    import torch
+
+    nvtx = torch.cuda.is_available()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
 
 
 class DeviceProfile(NamedTuple):
