@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``vors_track``'s streaming tracker) on the card
+Drives the port's main paths (``vors_track``'s streaming tracker, the
+batched driver, the options, the CLIs from files and ``vors_slam``) on the card
 at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
 (non-zero exit, no result line) unless every phase passes:
 
@@ -81,6 +82,26 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    run split at frame 5 by ``--save-state``/``--resume`` equal to the
    straight run's.  (g) ``vors_eval`` on (c)'s trajectory: the ATE equal to
    phase 4's to 1e-9 relative.
+9. The SLAM back end.  (a) The pose graph in plain torch on the card:
+   ``tests/test_ba.py``'s 60-node graph with 4 loops (dense and sparse
+   solves) and 320-node graph with 8 loops (sparse), built from its numpy
+   seed: two runs bit-equal, each solve within ``PGO_E_RTOL`` and
+   ``PGO_NODE_ATOL`` of the port's CPU run, sparse against dense likewise,
+   the 320-node energy under 1% of its start; ms (host clock, second run),
+   launches and host reads a solve (profiler), beside the CPU's ms.  (b) An
+   out-and-back sequence at 640x480 (``slam_sequence``, 25 frames), its
+   ground truth drifted: loop verification of the 16 closest pairs as lanes
+   of exactly six ``lm_solve_level`` launches, each lane's model within
+   phase 2's tolerance of a one-lane solve of its pair, every verified
+   ``Z_ij`` within ``tests/test_loop_closure.py``'s ground-truth
+   tolerances.  (c) ``vors_slam fr1`` through its ``main`` on the sequence's
+   PNGs: the JAX package's keyframe, loop-edge and map-point counts
+   (``JAX_SLAM``, ``chip_smoke_reference.py``), the ATE within 1.5x of
+   JAX's and at most ``vors_track --no-bucket``'s + 2e-3, six solver
+   launches a tracked frame and six for the verification; ``--kf-store
+   memory`` and a ``--save-state``/``--resume`` split print the straight
+   run's lines; the wall a frame split into tracking, loop closure, pose
+   graph and export.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
@@ -172,6 +193,26 @@ RESUME_AT = 20  # the streaming CLI saves after frame 20 and resumes from there
 LANE_SPLIT = 5  # the batch CLI saves after frame 5 (--max-frames) and resumes
 PREFETCH_THREADS = 4
 CKPT_REPS = 5  # timed saves and loads of a checkpoint
+# phase 9: the SLAM back end.  An out-and-back sequence: SLAM_LEG frames out
+# along SLAM_TWIST, as many back, at 640x480 (7 keyframes, loops between
+# the legs); vors_slam's default loop gates
+SLAM_LEG, SLAM_SEED = 12, 47
+SLAM_TWIST = [0.035, 0.004, 0.002, 0.002, -0.001, 0.001]
+SLAM_MAX_CANDIDATES = 16
+# the drift injected into the ground truth for (b), tests/test_loop_closure.py's
+SLAM_DRIFT_BIAS, SLAM_DRIFT_NOISE, SLAM_DRIFT_SEED = [0.004, -0.002, 0.001, 0.0008, 0.0005, -0.0004], 0.001, 8
+LOOP_T_ATOL, LOOP_Q_ATOL = 8e-3, 4e-3  # verified Z_ij against the ground truth (tests/test_loop_closure.py)
+# the pose graph: tests/test_ba.py::_loopy_graph's 60 nodes with 4 loops and
+# 320 nodes with 8; dense against sparse, energy rtol 1e-3 (test_ba) and the
+# nodes within PGO_NODE_ATOL: the LM stops in a flat tail where the last
+# polishing step (1.8e-5 on the 60-node graph) is accepted or rejected on f32
+# rounding of the energy, which another order of summation decides
+# otherwise (ROADMAP C2; 1.4e-5 measured on the CPU)
+PGO_GRAPHS = ((60, 4), (320, 8))
+PGO_E_RTOL, PGO_NODE_ATOL = 1e-3, 5e-5
+# the JAX package's vors_slam (CPU, gather sampling) on phase 9's files, by
+# chip_smoke_reference.py
+JAX_SLAM = {"keyframes": 7, "edges": 10, "points": 22276, "ate": 0.0017311276198341981}
 
 
 def drift_grays(grays):
@@ -202,6 +243,29 @@ def batch_kidnap_twists():
 
     step, n = np.asarray(KIDNAP_STEP), BATCH_KIDNAP_STEPS
     return np.asarray([KIDNAP_SMALL] + [step] * n + [-n * step] + [KIDNAP_SMALL] * (LANE_FRAMES - n - 2), np.float32)
+
+
+def slam_sequence():
+    """Phase 9's out-and-back sequence (frame 0 initializes)."""
+    import numpy as np
+
+    from visual_odometry_rs_tpu_torch.dataset import synthetic
+
+    out = np.asarray(SLAM_TWIST, np.float32)
+    twists = np.asarray([out] * SLAM_LEG + [-out] * SLAM_LEG, np.float32)
+    return synthetic.generate_sequence(nb_frames=2 * SLAM_LEG + 1, height=HEIGHT, width=WIDTH, seed=SLAM_SEED,
+                                       twist_per_frame=twists)
+
+
+def slam_counts(err: str):
+    """(keyframes, verified loop edges, map points) of a vors_slam stderr."""
+    import re
+
+    m = re.search(r"(\d+) keyframes, (\d+) verified loop edges", err)
+    points = re.search(r"exported (\d+) map points", err)
+    if not m:
+        raise AssertionError(f"vors_slam printed no keyframe count:\n{err[-2000:]}")
+    return int(m.group(1)), int(m.group(2)), int(points.group(1)) if points else None
 
 
 def _card_line() -> str:
@@ -1496,6 +1560,292 @@ def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
+
+def _loopy_nodes(n, nloops, seed=0, drift_scale=0.01):
+    """tests/test_ba.py::_loopy_graph in the port's math on the host: the
+    drifted chain's nodes and the ground-truth loop edges."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.math import se3
+
+    rng = np.random.default_rng(seed)
+
+    def exp(scale):
+        return se3.exp(torch.tensor(rng.normal(size=6) * scale, dtype=torch.float32))
+
+    gt = [pose_mod.identity()]
+    for _ in range(1, n):
+        gt.append(pose_mod.compose(gt[-1], exp(0.05)))
+    drift = [pose_mod.identity()]
+    for _ in range(1, n):
+        drift.append(pose_mod.compose(drift[-1], exp(drift_scale)))
+    est = [pose_mod.compose(p, d) for p, d in zip(gt, drift)]
+    loops = []
+    for _ in range(nloops):
+        i, j = int(rng.integers(n // 2, n)), int(rng.integers(0, n // 4))
+        loops.append((i, j, pose_mod.compose(pose_mod.inverse(gt[i]), gt[j])))
+    return pose_mod.Pose(torch.stack([p.q for p in est]), torch.stack([p.t for p in est])), loops
+
+
+def _solve_report(name, solver, graph, dev):
+    """Two runs of a solve on ``dev`` (bit-equal), the second timed, then its
+    launches and host reads (a third run under the profiler); returns
+    (result, ms)."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.utils import profiling
+
+    first = solver(graph, max_iterations=20)  # also the first use of the linear algebra libraries
+    _sync(dev)
+    start = time.perf_counter()
+    second = solver(graph, max_iterations=20)
+    _sync(dev)
+    ms = 1e3 * (time.perf_counter() - start)
+    if not (torch.equal(first.nodes.q, second.nodes.q) and torch.equal(first.nodes.t, second.nodes.t)
+            and torch.equal(first.energy, second.energy)):
+        raise AssertionError(f"{name}: two runs on the card differ")
+    prof = profiling.profile_device(lambda: solver(graph, max_iterations=20))
+    print(f"{name}: energy {float(first.energy):.6e} after {int(first.nb_iter)} LM iterations; {ms:.1f} ms "
+          f"(host clock to a synchronize); {prof.launches} kernel launches and {prof.device_to_host_copies} host "
+          f"reads a solve, device busy {prof.device_busy_ms:.1f} ms of {prof.wall_ms:.1f} (profiler on); two runs "
+          f"bit-equal")
+    return first, ms
+
+
+def _close(name, a, b, rtol=PGO_E_RTOL, atol=PGO_NODE_ATOL):
+    de = abs(float(a.energy) - float(b.energy))
+    dn = max(float((a.nodes.q.cpu() - b.nodes.q.cpu()).abs().max()),
+             float((a.nodes.t.cpu() - b.nodes.t.cpu()).abs().max()))
+    if not (de <= rtol * abs(float(b.energy)) + 1e-8 and dn <= atol):
+        raise AssertionError(f"{name}: energy {float(a.energy)} vs {float(b.energy)}, nodes differ by {dn}")
+    print(f"{name}: energies {float(a.energy):.6e} / {float(b.energy):.6e}, nodes max |d| {dn:.3e} "
+          f"(energy rtol {rtol}, nodes atol {atol})")
+    return dn
+
+
+def phase_pose_graph(dev):
+    """Phase 9a: the pose graph on the card against its CPU run."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.parallel import pose_graph
+
+    rows = []
+    for n, nloops in PGO_GRAPHS:
+        nodes, loops = _loopy_nodes(n, nloops)
+        graph = pose_graph.odometry_graph(nodes.to(dev), loop_edges=loops)
+        graph_cpu = pose_graph.odometry_graph(nodes, loop_edges=loops)
+        r = pose_graph.residuals(graph, graph.nodes)
+        e0 = float(torch.sum(r * r))
+        solvers = [("dense", pose_graph.solve)] if n <= 64 else []
+        solvers.append(("sparse", pose_graph.solve_sparse))
+        results = {}
+        for label, solver in solvers:
+            name = f"pose graph {n} nodes {nloops} loops, {label}"
+            results[label], ms = _solve_report(name, solver, graph, dev)
+            start = time.perf_counter()
+            on_cpu = solver(graph_cpu, max_iterations=20)
+            cpu_ms = 1e3 * (time.perf_counter() - start)
+            print(f"{name} on the host CPU ({torch.get_num_threads()} threads): {cpu_ms:.1f} ms, "
+                  f"{cpu_ms / ms:.2f}x the card's time")
+            _close(f"{name}, card vs CPU", results[label], on_cpu)
+            rows.append(dict(nodes=n, solver=label, ms=ms, cpu_ms=cpu_ms))
+        if "dense" in results:
+            _close(f"pose graph {n} nodes, sparse vs dense on the card", results["sparse"], results["dense"])
+        energy = float(results["sparse"].energy)
+        print(f"pose graph {n} nodes: energy {e0:.4e} -> {energy:.4e} ({100 * energy / e0:.3f}% of the start)")
+        if n > 64 and not energy < 0.01 * e0:  # tests/test_ba.py's bar for the 320-node graph
+            raise AssertionError(f"pose graph {n} nodes: energy {energy} not under 1% of {e0}")
+    return rows
+
+
+def _drifted(poses):
+    """The ground truth with tests/test_loop_closure.py's injected drift."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.math import se3
+
+    rng = np.random.default_rng(SLAM_DRIFT_SEED)
+    bias = np.asarray(SLAM_DRIFT_BIAS, np.float32)
+    drift = [pose_mod.identity()]
+    for _ in range(1, len(poses)):
+        step = se3.exp(torch.as_tensor(bias + rng.normal(size=6) * SLAM_DRIFT_NOISE, dtype=torch.float32))
+        drift.append(pose_mod.compose(drift[-1], step))
+    return [pose_mod.compose(p, d) for p, d in zip(poses, drift)]
+
+
+def phase_loop_closure(seq, dev):
+    """Phase 9b: loop verification at full width; returns the solver
+    launches of the verification."""
+    import contextlib
+    import io
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.models import loop_closure
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve
+
+    config = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=CAP)
+    drifted = _drifted(seq.poses)
+    lc = loop_closure.LoopClosureConfig(max_candidates=SLAM_MAX_CANDIDATES)
+    note = io.StringIO()
+    with contextlib.redirect_stderr(note):
+        pairs = loop_closure.propose_candidates(drifted, lc)
+    lm_solve.lm_solve_level.launches = 0
+    _sync(dev)
+    start = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        edges = loop_closure.detect_loops(config, seq.intrinsics, drifted, seq.depths, seq.grays, lc, device=dev)
+    wall_ms = 1e3 * (time.perf_counter() - start)
+    launches = lm_solve.lm_solve_level.launches
+    if dev.type == "cuda" and launches != LEVELS:
+        raise AssertionError(f"loop verification of {len(pairs)} pairs: {launches} solver launches, not {LEVELS}")
+    if len(pairs) != SLAM_MAX_CANDIDATES or not edges:
+        raise AssertionError(f"loop closure: {len(pairs)} pairs verified, {len(edges)} edges")
+    print(f"loop closure over {len(seq.poses)} drifted poses at {WIDTH}x{HEIGHT}, cap {CAP}: {note.getvalue().strip()}; "
+          f"{len(pairs)} pairs verified as lanes of {launches} lm_solve_level launches, {len(edges)} edges accepted; "
+          f"{wall_ms:.1f} ms (precompute of the unique keyframes, the six launches, one host read)")
+    # every lane against a one-lane solve of its pair (not counted)
+    ver = loop_closure.verify_pairs(config, seq.intrinsics, drifted, seq.depths, seq.grays, pairs, device=dev)
+    worst, equal = 0.0, 0
+    for k, pair in enumerate(pairs):
+        one = loop_closure.verify_pairs(config, seq.intrinsics, drifted, seq.depths, seq.grays, [pair], device=dev)
+        dt = float((one.model.t[0] - ver.model.t[k]).abs().max())
+        dq = float((one.model.q[0] - ver.model.q[k]).abs().max())
+        if not (dt <= SOLVE_T_ATOL and dq <= SOLVE_Q_ATOL and bool(one.failed[0] == ver.failed[k])):
+            raise AssertionError(f"loop lane {k} {pair}: |dt| {dt} |dq| {dq} from its one-lane solve")
+        worst = max(worst, dt, dq)
+        equal += int(dt == 0.0 and dq == 0.0)
+    print(f"loop lanes vs one-lane solves of each pair: {equal} of {len(pairs)} bit-equal, max |d| {worst:.3e} "
+          f"(atol t {SOLVE_T_ATOL} q {SOLVE_Q_ATOL})")
+    err_t = err_q = 0.0
+    for i, j, z, energy in edges:
+        gt = pose_mod.compose(pose_mod.inverse(seq.poses[i]), seq.poses[j])
+        dt, dq = float((z.t - gt.t).abs().max()), float((z.q - gt.q).abs().max())
+        if not (dt <= LOOP_T_ATOL and dq <= LOOP_Q_ATOL):
+            raise AssertionError(f"loop edge {i} <-> {j}: Z_ij off the ground truth by |dt| {dt} |dq| {dq}")
+        err_t, err_q = max(err_t, dt), max(err_q, dq)
+    print(f"verified Z_ij against the ground truth: max |dt| {err_t:.3e} (atol {LOOP_T_ATOL}), max |dq| {err_q:.3e} "
+          f"(atol {LOOP_Q_ATOL}); energies {[round(e, 3) for *_, e in edges]}")
+    return launches
+
+
+class _Timed:
+    """Wraps module functions with a host clock that ends in a synchronize;
+    ``seconds[name]`` sums their calls."""
+
+    def __init__(self, dev, targets):
+        self.dev, self.targets, self.seconds, self.saved = dev, targets, {}, []
+
+    def __enter__(self):
+        for name, (owner, attr) in self.targets.items():
+            real = getattr(owner, attr)
+            self.saved.append((owner, attr, real))
+            self.seconds[name] = 0.0
+
+            def timed(*args, _real=real, _name=name, **kwargs):
+                start = time.perf_counter()
+                out = _real(*args, **kwargs)
+                _sync(self.dev)
+                self.seconds[_name] += time.perf_counter() - start
+                return out
+
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, real in self.saved:
+            setattr(owner, attr, real)
+
+
+def phase_slam(seq, dev):
+    """Phase 9c: vors_slam from PNG files through its main; returns the
+    solver launches of its runs."""
+    import os
+    import shutil
+    import tempfile
+
+    from visual_odometry_rs_tpu_torch.cli import vors_slam, vors_track
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+    from visual_odometry_rs_tpu_torch.eval import ate
+    from visual_odometry_rs_tpu_torch.models import loop_closure
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve
+    from visual_odometry_rs_tpu_torch.parallel import pose_graph
+    from visual_odometry_rs_tpu_torch.utils import pointcloud
+
+    frames = len(seq.poses)
+    split = SLAM_LEG  # the split run saves at the turn
+    root = tempfile.mkdtemp(prefix="chip_smoke_slam_")
+    try:
+        assoc = tum_rgbd.write_sequence(os.path.join(root, "seq"), seq.grays, seq.depths, seq.timestamps)
+        lines = open(assoc).read().splitlines()
+        first = _write_subset(os.path.join(root, "seq", "first.txt"), lines, 0, 1 + split)
+        track_flags = ["--nb-levels", str(LEVELS), "--candidate-cap", str(CAP),
+                       *([] if dev.type == "cuda" else ["--cpu"])]
+        flags = [*track_flags, "--loop-max-candidates", str(SLAM_MAX_CANDIDATES)]
+        total = 0
+
+        def slam(argv, expect_frames):
+            """A vors_slam run: six solver launches a tracked frame, six more
+            for the verification when an edge was verified."""
+            nonlocal total
+            lm_solve.lm_solve_level.launches = 0
+            out, err, seconds = _cli(vors_slam.main, ["fr1", *argv, *flags])
+            launches = lm_solve.lm_solve_level.launches
+            total += launches
+            expect = LEVELS * (expect_frames + int(slam_counts(err)[1] > 0))
+            if dev.type == "cuda" and launches != expect:
+                raise AssertionError(f"vors_slam {argv[1:]}: {launches} solver launches, expected {expect}")
+            return out, err, seconds
+
+        ply = os.path.join(root, "map.ply")
+        timers = {
+            "tracking": (tracker_mod.Tracker, "track"),
+            "loop closure": (loop_closure, "detect_loops"),
+            "pose graph": (pose_graph, "solve"),
+            "pose graph (sparse)": (pose_graph, "solve_sparse"),
+            "export": (pointcloud, "keyframe_clouds"),
+        }
+        with _Timed(dev, timers) as timed:
+            out, err, wall = slam([assoc, "--export-cloud", ply, "--cloud-voxel", "0"], frames - 1)
+        keyframes, edges, points = slam_counts(err)
+        est = tum_rgbd.parse_trajectory(out)
+        err_slam = ate.ate_rmse([f.pose for f in est], seq.poses[1:])
+        tracked, _, _ = _cli(vors_track.main, ["fr1", assoc, *track_flags, "--no-bucket"])
+        err_track = ate.ate_rmse([f.pose for f in tum_rgbd.parse_trajectory(tracked)], seq.poses[1:])
+        split_s = {k: v for k, v in timed.seconds.items() if v}
+        rest = wall - sum(split_s.values())
+        print(f"vors_slam fr1 from files, {frames - 1} frames at {WIDTH}x{HEIGHT}: {keyframes} keyframes, {edges} "
+              f"verified loop edges, {points} map points (--cloud-voxel 0); wall {1e3 * wall:.1f} ms = "
+              f"{1e3 * wall / (frames - 1):.3f} ms a frame, of which "
+              + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in split_s.items())
+              + f", the rest {1e3 * rest:.1f} ms (start-up, decode waits, output)")
+        print(f"vors_slam ATE {err_slam:.6e} m against vors_track's (--no-bucket) {err_track:.6e} m; the JAX "
+              f"package's vors_slam: {JAX_SLAM}")
+        if (keyframes, edges, points) != (JAX_SLAM["keyframes"], JAX_SLAM["edges"], JAX_SLAM["points"]):
+            raise AssertionError(f"vors_slam counts {(keyframes, edges, points)} differ from the JAX package's")
+        if not (err_slam <= 1.5 * JAX_SLAM["ate"] and err_slam <= err_track + 2e-3):
+            raise AssertionError(f"vors_slam ATE {err_slam} above 1.5 x {JAX_SLAM['ate']} or {err_track} + 2e-3")
+        if len(pointcloud.read_ply(ply)[0]) != points:
+            raise AssertionError("the PLY file does not hold the points vors_slam reported")
+        if slam([assoc, "--kf-store", "memory"], frames - 1)[0] != out:
+            raise AssertionError("vors_slam --kf-store memory differs from --kf-store disk")
+        ckpt = os.path.join(root, "slam.npz")
+        slam([first, "--save-state", ckpt], split)
+        resumed, err_r, _ = slam([assoc, "--resume", ckpt], frames - 1 - split)
+        if resumed != out or f"resumed from {ckpt}: {split} frames tracked" not in err_r:
+            raise AssertionError("vors_slam --save-state/--resume differs from the straight run")
+        print(f"vors_slam --kf-store memory and a run split at frame {split} by --save-state/--resume "
+              f"({os.path.getsize(ckpt)} bytes): stdout bit-equal to the straight run; {total} solver launches in "
+              f"phase 9c's four vors_slam runs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
 def main() -> int:
     try:
         import torch
@@ -1638,6 +1988,14 @@ def main() -> int:
     solve_launches += cli_launches
     lane_row["launches"] += batch_cli_launches
     print(f"phase 8 (the front end from files): {time.perf_counter() - eight:.1f} s")
+
+    # phase 9: the SLAM back end
+    nine = time.perf_counter()
+    phase_pose_graph(dev)
+    slam_seq = slam_sequence()
+    solve_launches += phase_loop_closure(slam_seq, dev)
+    solve_launches += phase_slam(slam_seq, dev)
+    print(f"phase 9 (the SLAM back end): {time.perf_counter() - nine:.1f} s")
 
     def row(rows):  # level 0 as the tracker buckets it
         return next(r for r in rows if r["level"] == 0 and r["shape"] == "bucket")

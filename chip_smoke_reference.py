@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """The JAX package's ATE on ``chip_smoke.py``'s streaming sequences (CPU).
 
-    JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [plain|huber+brightness|dso_fixed|relocalize ...]
+    JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [plain|huber+brightness|dso_fixed|relocalize|slam ...]
 
 ``chip_smoke.py`` holds the port's ATE on the card within 1.5x of these
 numbers (``JAX_ATE`` for phase 4, ``JAX_ATE_OPTIONS`` for phase 7).  Each
 run tracks the 40 frames that the smoke test tracks, at 640x480 with 6
 levels and cap 8192, bucketing on and gather sampling, through the JAX
-package's host ``Tracker``, and prints one JSON line.  A run holds a few GiB
+package's host ``Tracker``, and prints one JSON line.  ``slam`` runs the JAX
+package's ``vors_slam`` on phase 9's sequence from PNG files and prints the
+keyframe, loop-edge and map-point counts and the ATE (``JAX_SLAM``).  A run holds a few GiB
 of host memory; the script stops itself if it passes ``MEMORY_LIMIT_GIB``.
 """
 
@@ -89,11 +91,47 @@ def jax_ate(kind, overrides) -> float:
     return float(ate.ate_rmse(est, truth))
 
 
+def jax_slam() -> dict:
+    """The JAX package's ``vors_slam`` through its ``main`` on phase 9's
+    sequence written as PNGs by the port's writer: keyframes, verified loop
+    edges, map points (``--cloud-voxel 0``) and the ATE of frames 1.. ."""
+    import contextlib
+    import io
+    import tempfile
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from visual_odometry_rs_tpu.cli import vors_slam
+
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+    from visual_odometry_rs_tpu_torch.eval import ate
+
+    seq = smoke.slam_sequence()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reference_") as root:
+        assoc = tum_rgbd.write_sequence(os.path.join(root, "seq"), seq.grays, seq.depths, seq.timestamps)
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = vors_slam.main(["fr1", assoc, "--cpu", "--interp", "gather", "--nb-levels", str(smoke.LEVELS),
+                                 "--candidate-cap", str(smoke.CAP), "--loop-max-candidates",
+                                 str(smoke.SLAM_MAX_CANDIDATES), "--export-cloud", os.path.join(root, "map.ply")])
+    if rc != 0:
+        raise RuntimeError(f"vors_slam exited {rc}: {err.getvalue()[-2000:]}")
+    keyframes, edges, points = smoke.slam_counts(err.getvalue())
+    frames = tum_rgbd.parse_trajectory(out.getvalue())
+    return {"keyframes": keyframes, "edges": edges, "points": points,
+            "ate": float(ate.ate_rmse([f.pose for f in frames], seq.poses[1:]))}
+
+
 def main(argv) -> int:
     threading.Thread(target=_watch_memory, daemon=True).start()
-    for name in argv or list(RUNS):
-        kind, overrides = RUNS[name]
+    for name in argv or [*RUNS, "slam"]:
         start = time.time()
+        if name == "slam":
+            print(json.dumps({"run": name, "jax_slam": jax_slam(), "seconds": round(time.time() - start, 1)}),
+                  flush=True)
+            continue
+        kind, overrides = RUNS[name]
         value = jax_ate(kind, overrides)
         print(json.dumps({"run": name, "jax_ate": value, "seconds": round(time.time() - start, 1)}), flush=True)
     return 0

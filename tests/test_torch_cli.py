@@ -103,6 +103,22 @@ def test_cli_missing_file_and_no_cuda():
             tcli.main(["fr1", "/nonexistent/associations.txt"])
 
 
+def test_vors_slam_needs_cuda_and_names_the_window_item(tmp_path):
+    """``vors_slam`` runs on CUDA unless ``--cpu`` is given, and refuses the
+    photometric window (``--refine-window``), which is ROADMAP A11b."""
+    from visual_odometry_rs_tpu_torch.cli import vors_slam
+
+    seq = tsyn.generate_sequence(nb_frames=2, height=48, width=64, seed=3)
+    assoc = ttum.write_sequence(str(tmp_path), seq.grays, seq.depths, seq.timestamps)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            vors_slam.main(["fr1", assoc])
+    err = io.StringIO()
+    with redirect_stderr(err):
+        assert vors_slam.main(["fr1", assoc, "--cpu", "--refine-window", "3"]) == 1
+    assert "A11b" in err.getvalue()
+
+
 def test_synthetic_sequence_matches():
     kw = dict(nb_frames=3, height=60, width=80, seed=3)
     ref = jsyn.generate_sequence(**kw)

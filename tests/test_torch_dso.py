@@ -4,8 +4,10 @@ against the JAX package and the scalar oracle ``tests/oracle/dso_oracle.py``.
 Every comparison is EQUAL: the stages are integer arithmetic, the 3x3 sums
 of medians are exact in f32, and the threshold keeps the JAX package's f32
 order.  The random thinning plane is the JAX package's
-``jax.random.randint(PRNGKey(0), shape, 0, 256)``, passed in: torch cannot
-draw those bits.  Oracle inputs are the tie-free gradients of
+``jax.random.randint(PRNGKey(seed), shape, 0, 256)``: the port draws the same
+bits (``seeded_plane``, Threefry-2x32 in numpy), which the tests below hold
+bit-equal, and the masks equal with and without the plane passed in.  Oracle
+inputs are the tie-free gradients of
 ``tests/test_oracle_dso.py`` (coefficient a = 1/4096 undoes their scale).
 """
 
@@ -113,9 +115,86 @@ def test_select_fixed_block_lane_axis(scene):
     both = tdso.select_fixed_block(grads, 150, region_config=cfg, random_plane=plane)
     for b in range(2):
         assert torch.equal(both[b], tdso.select_fixed_block(grads[b], 150, region_config=cfg, random_plane=plane))
-    # without a plane: the seeded torch plane, the same for every call
+    # without a plane: JAX's plane of seed 0, the same for every call
     assert torch.equal(tdso.select_fixed_block(grads, 150, region_config=cfg),
                        tdso.select_fixed_block(grads, 150, region_config=cfg, seed=0))
+
+
+@pytest.mark.parametrize("shape", [(480, 640), (3, 120, 160), (48, 64)])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_seeded_plane_is_jax_randint(shape, seed):
+    """The port's plane bit-equal to ``randint(PRNGKey(seed), shape, 0, 256)``."""
+    ref = np.array(jax.random.randint(jax.random.PRNGKey(seed), shape, 0, 256, jnp.int32))
+    out = tdso.seeded_plane(shape, seed)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+# the thinning cases of the tests above: ratio about 1.4 and 2.7 at a = 0.2
+@pytest.mark.parametrize("target", [150, 80])
+def test_selectors_match_without_a_plane(norms, target):
+    """``select_fixed_block`` and ``select`` equal to JAX's with no plane
+    passed: the port draws JAX's plane itself."""
+    jg, tg = norms
+    cfg_j, cfg_t = jdso.RegionConfig(threshold_coef_a=0.2), tdso.RegionConfig(threshold_coef_a=0.2)
+    fixed = tdso.select_fixed_block(tg, target, region_config=cfg_t)
+    ref = np.asarray(jdso.select_fixed_block(jnp.asarray(jg), target, region_config=cfg_j))
+    assert fixed.sum() < (tdso.select_fixed_block(tg, 10**6, region_config=cfg_t)).sum()  # it thinned
+    np.testing.assert_array_equal(fixed.numpy(), ref)
+    ref = np.asarray(jdso.select(jnp.asarray(jg), target, region_config=cfg_j))
+    np.testing.assert_array_equal(tdso.select(tg, target, region_config=cfg_t).numpy(), ref)
+    # a seed other than 0 is PRNGKey(seed)
+    key = jax.random.PRNGKey(7)
+    ref = np.asarray(jdso.select_fixed_block(jnp.asarray(jg), target, region_config=cfg_j, key=key))
+    np.testing.assert_array_equal(tdso.select_fixed_block(tg, target, region_config=cfg_t, seed=7).numpy(), ref)
+
+
+def test_precompute_keyframe_dso_thinned_matches(scene):
+    """The ``dso_fixed`` and ``dso`` keyframes of both packages at a target
+    that thins, no plane passed: the same candidates at level 0."""
+    kw = dict(height=H, width=W, nb_levels=3, candidate_cap=1024, dso_threshold_coef_a=0.2, dso_target=150)
+    intr = JIntrinsics(*(jnp.asarray(v.numpy()) for v in scene.intrinsics))
+    depth, gray = scene.depths[0], scene.grays[0]
+    for selector in ("dso_fixed", "dso"):
+        jcfg = jtracker.TrackerConfig(**kw, candidate_selector=selector)
+        jpyramid = jpyr.mean_pyramid(3, jnp.asarray(gray))
+        mask = None
+        if selector == "dso":  # as the JAX host Tracker builds it
+            mask = jdso.select(jgrad.norm_direct(jpyramid[0]), kw["dso_target"],
+                               region_config=jdso.RegionConfig(threshold_coef_a=0.2))
+        ref = jtracker.precompute_keyframe(jcfg, intr, jnp.asarray(depth), jpyramid, finest_mask=mask)
+        tcfg = ttracker.TrackerConfig(**kw, candidate_selector=selector)
+        tpyramid = tpyr.mean_pyramid(3, torch.from_numpy(gray))
+        tmask = ttracker.dso_mask(tcfg, tpyramid[0]) if selector == "dso" else None
+        out = ttracker.precompute_keyframe(tcfg, scene.intrinsics, torch.from_numpy(depth.astype(np.int32)),
+                                           tpyramid, finest_mask=tmask)
+        r, o = ref.levels[0], interop.level_to_numpy(out.levels[0])
+        assert 0 < o.valid.sum() < 400, selector
+        for f in ("xs", "ys", "valid"):
+            np.testing.assert_array_equal(getattr(o, f), np.asarray(getattr(r, f)), err_msg=f"{selector} {f}")
+
+
+def test_flow_leaves_padding_out_as_the_jitted_jax_tracker(scene):
+    """A thinned ``dso_fixed`` keyframe has padding at the coarsest level,
+    which warps to NaN.  The JAX package's jitted ``track_frame`` (what its
+    trackers run) leaves it out of the mean flow, as XLA compiles
+    ``sum(dflow * valid)`` into a select; the port's flow equals it
+    (``rtol=1e-4``, the solver's flow tolerance), finite."""
+    kw = dict(height=H, width=W, nb_levels=3, candidate_cap=1024, candidate_selector="dso_fixed",
+              dso_threshold_coef_a=0.2, dso_target=150)
+    intr = JIntrinsics(*(jnp.asarray(v.numpy()) for v in scene.intrinsics))
+    jcfg, tcfg = jtracker.TrackerConfig(**kw, interp_method="gather"), ttracker.TrackerConfig(**kw)
+    jkf = jax.jit(lambda d, p: jtracker.precompute_keyframe(jcfg, intr, d, p))(
+        jnp.asarray(scene.depths[0]), jpyr.mean_pyramid(3, jnp.asarray(scene.grays[0])))
+    ref = jax.jit(lambda kf, p: jtracker.track_frame(jcfg, kf, p, jtracker.pose_mod.identity()))(
+        jkf, jpyr.mean_pyramid(3, jnp.asarray(scene.grays[1])))
+    tkf = ttracker.precompute_keyframe(tcfg, scene.intrinsics, torch.from_numpy(scene.depths[0].astype(np.int32)),
+                                       tpyr.mean_pyramid(3, torch.from_numpy(scene.grays[0])))
+    out = ttracker.track_frame(tcfg, tkf, tpyr.mean_pyramid(3, torch.from_numpy(scene.grays[1])),
+                               ttracker.pose_mod.identity())
+    assert not bool(tkf.levels[-1].valid.all())  # padding at the coarsest level
+    assert np.isfinite(float(ref.flow)) and float(ref.flow) > 0.0
+    np.testing.assert_allclose(float(out.flow), float(ref.flow), rtol=1e-4)
 
 
 def test_precompute_keyframe_dso_fixed_matches(scene):

@@ -14,8 +14,8 @@ sys.modules["jax"] = None
 sys.modules["visual_odometry_rs_tpu"] = None
 for name in sys.argv[1:]:
     importlib.import_module(name)
-from visual_odometry_rs_tpu_torch.cli import vors_batch, vors_eval, vors_track
-for cli in (vors_track, vors_batch, vors_eval):
+from visual_odometry_rs_tpu_torch.cli import vors_batch, vors_eval, vors_slam, vors_track
+for cli in (vors_track, vors_batch, vors_eval, vors_slam):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -36,7 +36,7 @@ def test_port_imports_and_cli_help_without_jax():
     assert "visual_odometry_rs_tpu_torch.models.tracker" in modules
     assert "visual_odometry_rs_tpu_torch.parallel.batch" in modules
     for name in ("models.relocalize", "core.candidates.dso", "native", "utils.checkpoint", "utils.metrics",
-                 "cli.vors_eval"):
+                 "cli.vors_eval", "parallel.pose_graph", "models.loop_closure", "utils.pointcloud", "cli.vors_slam"):
         assert f"visual_odometry_rs_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules],
@@ -46,9 +46,13 @@ def test_port_imports_and_cli_help_without_jax():
     assert "associations_file" in proc.stdout and "--switch-cadence" in proc.stdout
     for flag in ("--robust-delta", "--candidate-selector", "--dso-target", "--dso-block-size", "--dso-a",
                  "--brightness-model", "--relocalize", "--relocalize-energy"):
-        assert proc.stdout.count(flag) >= 2, flag  # in both CLIs' help
+        assert proc.stdout.count(flag) >= 3, flag  # in the help of vors_track, vors_batch and vors_slam
     for flag in ("--save-state", "--resume"):
-        assert proc.stdout.count(flag) >= 2, flag  # documented in both CLIs' help
+        assert proc.stdout.count(flag) >= 3, flag  # documented in the three CLIs' help
+    for flag in ("--loop-radius", "--loop-max-angle", "--loop-min-gap", "--loop-max-candidates",
+                 "--loop-energy-accept", "--save-every", "--export-cloud", "--cloud-voxel", "--refine-window",
+                 "--refine-energy-tol", "--warm-start", "--level-iterations", "--kf-store"):
+        assert flag in proc.stdout, flag  # vors_slam's flags
     for flag in ("--chunk", "--metrics", "--delta", "--max-dt"):
         assert flag in proc.stdout, flag
     assert "==SUPPRESS==" not in proc.stdout

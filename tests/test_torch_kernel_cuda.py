@@ -532,3 +532,63 @@ def test_resumed_cuda_tracker_is_bit_equal(cuda_device, tmp_path, warm_start):
     assert resumed.current_pose.q.device.type == "cpu"
     assert torch.equal(track(resumed, range(4, 7)), ref)
     assert resumed.keyframe_switches == trk.keyframe_switches >= 1
+
+
+def test_flow_leaves_padding_out_on_the_card(cuda_device):
+    """A coarsest level with padding: the kernel's flow leaves it out, as
+    ``track_frame_reference`` does (finite, ``rtol=1e-4``)."""
+    config, kf, pyr1 = _keyframe(cuda_device)
+    levels = list(kf.levels)
+    coarse = levels[-1]
+    levels[-1] = coarse._replace(valid=coarse.valid & (torch.arange(coarse.valid.shape[0], device=cuda_device) % 3 > 0),
+                                 idepth=torch.where(torch.arange(coarse.valid.shape[0], device=cuda_device) % 3 > 0,
+                                                    coarse.idepth, torch.zeros_like(coarse.idepth)))
+    padded = tracker.KeyframeData(levels=tuple(levels))
+    start = se3.exp(torch.tensor(SMALL, device=cuda_device))
+    out = tracker.track_frame(config, padded, pyr1, start)
+    ref = tracker.track_frame_reference(config, padded, pyr1, start)
+    assert bool(torch.isfinite(out.flow)) and bool(torch.isfinite(ref.flow))
+    np.testing.assert_allclose(float(out.flow), float(ref.flow), rtol=1e-4)
+
+
+def test_loop_verification_lanes_on_the_card(cuda_device):
+    """``loop_closure.verify_pairs``: six launches for every pair, each lane
+    bit-equal to a one-lane solve of its pair, within the solver's
+    tolerances of the CPU's lane-by-lane plain version."""
+    from visual_odometry_rs_tpu_torch.models import loop_closure
+
+    seq = synthetic.generate_sequence(nb_frames=6, height=H, width=W, seed=41,
+                                      twist_per_frame=[0.02, 0.002, 0.001, 0.001, 0.0, 0.0])
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
+    pairs = [(5, 0), (4, 1), (5, 1)]
+    before = lm_solve.lm_solve_level.launches
+    ver = loop_closure.verify_pairs(config, seq.intrinsics, seq.poses, seq.depths, seq.grays, pairs, cuda_device)
+    assert lm_solve.lm_solve_level.launches - before == LEVELS
+    ref = loop_closure.verify_pairs(config, seq.intrinsics, seq.poses, seq.depths, seq.grays, pairs, "cpu")
+    np.testing.assert_allclose(ver.model.t.cpu().numpy(), ref.model.t.numpy(), atol=1e-5)
+    np.testing.assert_allclose(ver.model.q.cpu().numpy(), ref.model.q.numpy(), atol=1e-6)
+    for k, pair in enumerate(pairs):
+        one = loop_closure.verify_pairs(config, seq.intrinsics, seq.poses, seq.depths, seq.grays, [pair], cuda_device)
+        assert torch.equal(one.model.q[0], ver.model.q[k]) and torch.equal(one.model.t[0], ver.model.t[k])
+
+
+def test_pose_graph_on_the_card(cuda_device):
+    """Both solves on the card: two runs bit-equal, the CPU's result within
+    the energy ``rtol=1e-3`` and nodes ``atol=5e-5`` (the LM's flat tail)."""
+    from visual_odometry_rs_tpu_torch.parallel import pose_graph
+
+    rng = np.random.default_rng(0)
+    gt = [pose.identity()]
+    for _ in range(1, 30):
+        gt.append(pose.compose(gt[-1], se3.exp(torch.tensor(rng.normal(size=6) * 0.05, dtype=torch.float32))))
+    est = [pose.compose(p, se3.exp(torch.tensor(rng.normal(size=6) * 0.01, dtype=torch.float32))) for p in gt]
+    nodes = pose.Pose(torch.stack([p.q for p in est]), torch.stack([p.t for p in est]))
+    loops = [(25, 2, pose.compose(pose.inverse(gt[25]), gt[2])), (29, 0, pose.compose(pose.inverse(gt[29]), gt[0]))]
+    for solver in (pose_graph.solve, pose_graph.solve_sparse):
+        graph = pose_graph.odometry_graph(nodes.to(cuda_device), loop_edges=loops)
+        a, b = solver(graph), solver(graph)
+        assert a.nodes.q.device.type == "cuda"
+        assert torch.equal(a.nodes.q, b.nodes.q) and torch.equal(a.nodes.t, b.nodes.t)
+        ref = solver(pose_graph.odometry_graph(nodes, loop_edges=loops))
+        np.testing.assert_allclose(float(a.energy), float(ref.energy), rtol=1e-3, atol=1e-8)
+        np.testing.assert_allclose(a.nodes.t.cpu().numpy(), ref.nodes.t.numpy(), atol=5e-5)

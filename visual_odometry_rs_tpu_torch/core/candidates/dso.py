@@ -20,12 +20,11 @@ picks are integers, the 3x3 sums of medians are integers below 2^24 in f32,
 and the threshold keeps the JAX package's f32 order ``(a t) t``.
 
 Random thinning.  The JAX package draws
-``jax.random.randint(PRNGKey(0), shape, 0, 256)``; torch cannot reproduce
-those bits.  ``select_fixed_block`` and ``select`` therefore take the plane
-of draws as an optional ``random_plane`` argument (the parity tests pass the
-JAX package's plane); without it the plane comes from a ``torch.Generator``
-seeded with ``seed``, so a run of the port that thins picks other points
-than a run of the JAX package, with the same keep ratio.
+``jax.random.randint(PRNGKey(seed), shape, 0, 256)`` (seed 0).  The port
+draws the same bits: ``seeded_plane`` computes JAX's Threefry-2x32 counter
+generator in numpy on the host (the partitionable layout, JAX's default
+since 0.5), once per shape, seed and device.  ``select_fixed_block`` and
+``select`` still take the plane as an optional ``random_plane`` argument.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from dataclasses import dataclass
 from functools import lru_cache
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from ...utils.types import Float
@@ -221,16 +221,50 @@ def _select_once(gradients, block_size, nb_levels, threshold_factor, region_size
     return _pick_all(gradients, thresh, block_size, nb_levels, threshold_factor, region_size)
 
 
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(key, x0: np.ndarray, x1: np.ndarray):
+    """The 20-round Threefry-2x32 block cipher of ``jax.random`` on uint32
+    arrays: five groups of four rounds, the rotations alternating between
+    the two sets, a key injection after every group."""
+    k0, k1 = np.uint32(key[0]), np.uint32(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x0, x1 = x0 + ks[0], x1 + ks[1]
+    for group in range(5):
+        for r in _ROTATIONS[group % 2]:
+            x0 = x0 + x1
+            x1 = (x1 << np.uint32(r)) | (x1 >> np.uint32(32 - r))
+            x1 = x1 ^ x0
+        x0 = x0 + ks[(group + 1) % 3]
+        x1 = x1 + ks[(group + 2) % 3] + np.uint32(group + 1)
+    return x0, x1
+
+
+def jax_randint_256(shape: Tuple[int, ...], seed: int = 0) -> np.ndarray:
+    """``jax.random.randint(PRNGKey(seed), shape, 0, 256, int32)`` in numpy.
+
+    ``PRNGKey(seed)`` is the key (0, seed); ``randint`` splits it in two, and
+    for a span of 256 only the second key's bits count (the first's
+    multiplier, (2^16 mod 256)^2 mod 256, is 0).  The bits of a key are
+    Threefry of the flat index as a 64-bit counter (high word, low word),
+    the two output words xor-ed."""
+    with np.errstate(over="ignore"):
+        keys = _threefry2x32((0, seed), np.zeros(2, np.uint32), np.arange(2, dtype=np.uint32))
+        second = (keys[0][1], keys[1][1])
+        idx = np.arange(math.prod(shape), dtype=np.uint64)
+        a, b = _threefry2x32(second, (idx >> np.uint64(32)).astype(np.uint32), idx.astype(np.uint32))
+    return ((a ^ b) % np.uint32(256)).astype(np.int32).reshape(shape)
+
+
 @lru_cache(maxsize=8)
 def _seeded_plane(shape: Tuple[int, ...], seed: int, device: str) -> torch.Tensor:
-    generator = torch.Generator(device="cpu").manual_seed(seed)
-    plane = torch.randint(0, 256, shape, generator=generator, dtype=torch.int32)
-    return plane.to(device)
+    return torch.from_numpy(jax_randint_256(shape, seed)).to(device)
 
 
 def seeded_plane(shape, seed: int = 0, device="cpu") -> torch.Tensor:
-    """The thinning draws, uniform in [0, 256), (H, W) int32: from a CPU
-    ``torch.Generator`` seeded with ``seed``, the same on every device."""
+    """The thinning draws, uniform in [0, 256), int32 of ``shape``: the JAX
+    package's ``randint(PRNGKey(seed), shape, 0, 256)``, bit for bit."""
     return _seeded_plane(tuple(shape), seed, str(torch.device(device)))
 
 

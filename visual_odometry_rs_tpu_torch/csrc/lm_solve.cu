@@ -340,10 +340,11 @@ __device__ __forceinline__ void block_sum(float (&x)[N], ReduceShared<S>& sh) {
   }
 }
 
-// sum(|x - u| + |y - v|) * valid / sum(valid) over the flow candidates, by
+// sum over the valid flow candidates of |x - u| + |y - v|, / sum(valid), by
 // one block in a fixed order.  A padding candidate (idepth 0) warps to NaN
-// and NaN * 0 is NaN, so a level with padding reports NaN, which never
-// triggers a keyframe switch: the behaviour of the JAX package, kept.
+// and is left out, as the JAX package's jitted trackers leave it out (XLA
+// compiles its sum(dflow * valid) into a select); a level without a valid
+// candidate reports 0 / 0, NaN, which never triggers a keyframe switch.
 template <int S>
 __device__ float mean_flow(const FlowLevel& fl, const Motion& m, ReduceShared<S>& sh) {
   const Camera k = {fl.intrinsics[0], fl.intrinsics[1], fl.intrinsics[2], fl.intrinsics[3],
@@ -356,9 +357,10 @@ __device__ float mean_flow(const FlowLevel& fl, const Motion& m, ReduceShared<S>
     const float px = ((x - k.cx) * depth - k.skew * py) / k.fx;
     float u, v;
     warp_point(px, py, depth, m, k, u, v);
-    const float validf = fl.valid[i] != 0 ? 1.0f : 0.0f;
-    sums[0] += (fabsf(x - u) + fabsf(y - v)) * validf;
-    sums[1] += validf;
+    if (fl.valid[i] != 0) {
+      sums[0] += fabsf(x - u) + fabsf(y - v);
+      sums[1] += 1.0f;
+    }
   }
   block_sum(sums, sh);
   return sums[0] / sums[1];

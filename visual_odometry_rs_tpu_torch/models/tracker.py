@@ -65,9 +65,9 @@ from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
 class TrackerConfig:
     """Static tracker configuration: the fields of the JAX ``TrackerConfig``
     that the streaming and batched paths use, with the same defaults, and
-    ``dso_seed``, the seed of the DSO selectors' random thinning (the JAX
-    package always draws from ``PRNGKey(0)``, whose bits torch cannot
-    reproduce)."""
+    ``dso_seed``, the seed of the DSO selectors' random thinning: the plane
+    is ``randint(PRNGKey(dso_seed), shape, 0, 256)`` with JAX's bits, and
+    the JAX package always draws from ``PRNGKey(0)``."""
 
     height: int
     width: int
@@ -602,13 +602,16 @@ def _level_kwargs(config: TrackerConfig, lvl: int) -> dict:
 
 def _mean_flow(model: Pose, coarse: LevelObs) -> torch.Tensor:
     """Optical-flow keyframe criterion at the coarsest level
-    (inverse_compositional.rs:211-222): mean |Δu| + |Δv| over the candidates.
-    Padding candidates warp to NaN and make the mean NaN, which never
-    triggers a switch, as in the JAX package."""
+    (inverse_compositional.rs:211-222): mean |Δu| + |Δv| over the valid
+    candidates.  Padding candidates (idepth 0) warp to NaN and are left out
+    of the sum: the JAX package writes ``sum(dflow * valid)``, which XLA
+    compiles into a select, so its jitted trackers (every one its CLIs run)
+    ignore the padding NaNs.  A level without a valid candidate gives 0 / 0,
+    NaN, which never triggers a switch."""
     u, v = camera_mod.warp(model, coarse.xs, coarse.ys, coarse.idepth, coarse.intrinsics)
     dflow = torch.abs(coarse.xs - u) + torch.abs(coarse.ys - v)
     validf = coarse.valid.to(Float)
-    return torch.sum(dflow * validf) / torch.sum(validf)
+    return torch.sum(torch.where(coarse.valid, dflow, torch.zeros_like(dflow))) / torch.sum(validf)
 
 
 def _track_frame_kernel(config, kf, img_pyramid, init_model, detector, image_index, active) -> TrackResult:

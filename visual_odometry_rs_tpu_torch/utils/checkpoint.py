@@ -6,8 +6,9 @@ that a checkpoint written by either package resumes in the other: an npz
 archive whose arrays ``leaf_0 .. leaf_N`` are the leaves of the state in the
 JAX package's pytree order, and whose ``__meta__`` is a JSON object with the
 format version, a fingerprint of the configuration and the host values
-(timestamps, counters).  The window and SLAM parts of the JAX module belong
-to the back end, which the port does not have yet (ROADMAP A11).
+(timestamps, counters).  ``save_slam``/``load_slam`` checkpoint
+``vors_slam``'s tracking phase in the JAX module's SLAM layout; the window
+parts of the JAX module belong to the photometric window (ROADMAP A11b).
 
 - **Leaf order.** ``tree_leaves`` flattens like ``jax.tree_util``: the keys
   of a dict sorted, the fields of a NamedTuple and the items of a tuple in
@@ -383,3 +384,90 @@ def load_batch(path: str, state_template, ring_template, config, intrinsics, swi
         [list(ts) for ts in meta["lane_timestamps"]],
         interop.pose_from_numpy(tree["prev"], device) if expect_prev else None,
     )
+
+
+# ---------------------------------------------------------------------------
+# vors_slam's tracking phase: the tracker, the trajectory so far and, in the
+# memory mode, the keyframe images that loop closure needs later
+# ---------------------------------------------------------------------------
+
+
+def save_slam(path: str, tracker, trajectory, timestamps, keyframe_ids, kf_images, frames_done: int) -> None:
+    """Checkpoint ``vors_slam``'s tracking phase: the tracker's state, the
+    trajectory so far (poses on the host) and, unless ``kf_images`` is None,
+    the keyframe images ``{frame id: (depth, gray)}``.  Without the images
+    (the bounded-memory mode) a resume decodes them from the dataset again,
+    which ``sequence_matches`` binds the checkpoint to."""
+    state = {
+        "keyframe_data": tracker.keyframe_data,
+        "keyframe_pose": tracker.keyframe_pose,
+        "current_pose": tracker.current_pose,
+        "traj_q": torch.stack([torch.as_tensor(p.q) for p in trajectory]),
+        "traj_t": torch.stack([torch.as_tensor(p.t) for p in trajectory]),
+    }
+    if tracker.config.warm_start == "constant_velocity":
+        state["prev_pose"] = tracker.prev_pose
+    if kf_images is not None:
+        state["kf_depths"] = np.stack([np.asarray(kf_images[i][0]) for i in keyframe_ids])
+        state["kf_grays"] = np.stack([np.asarray(kf_images[i][1]) for i in keyframe_ids])
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "slam",
+        "config_fingerprint": config_fingerprint(tracker.config, tracker.intrinsics),
+        "keyframe_depth_timestamp": tracker.keyframe_depth_timestamp,
+        "keyframe_img_timestamp": tracker.keyframe_img_timestamp,
+        "current_depth_timestamp": tracker.current_depth_timestamp,
+        "current_img_timestamp": tracker.current_img_timestamp,
+        "keyframe_switches": tracker.keyframe_switches,
+        "timestamps": [float(t) for t in timestamps],
+        "keyframe_ids": list(map(int, keyframe_ids)),
+        "frames_done": int(frames_done),
+        "has_kf_images": kf_images is not None,
+    }
+    save_pytree(path, state, meta)
+
+
+def load_slam(path: str, tracker):
+    """Restore a ``save_slam`` checkpoint (of either package) into a tracker
+    with the same configuration and intrinsics.  Returns ``(trajectory,
+    timestamps, keyframe_ids, kf_images or None, frames_done)``, the
+    trajectory's poses CPU tensors and the images numpy; raises
+    ``CheckpointMismatchError`` for another format, kind or
+    configuration."""
+    from ..math.pose import Pose
+
+    meta = _peek_meta(path)
+    _check_meta(meta, path, "slam", config_fingerprint(tracker.config, tracker.intrinsics), "tracker")
+    has_kf = meta.get("has_kf_images", True)  # older checkpoints carry them
+    template = {
+        "keyframe_data": tracker.keyframe_data,
+        "keyframe_pose": tracker.keyframe_pose,
+        "current_pose": tracker.current_pose,
+        "traj_q": 0.0,
+        "traj_t": 0.0,
+    }
+    if tracker.config.warm_start == "constant_velocity":
+        template["prev_pose"] = tracker.current_pose
+    if has_kf:
+        template["kf_depths"] = 0.0
+        template["kf_grays"] = 0.0
+    state, _ = load_pytree(path, template)
+    tracker.keyframe_data = state["keyframe_data"]
+    tracker.keyframe_pose = state["keyframe_pose"]
+    tracker.current_pose = state["current_pose"]
+    tracker.prev_pose = state.get("prev_pose", tracker.current_pose)
+    tracker.keyframe_depth_timestamp = meta["keyframe_depth_timestamp"]
+    tracker.keyframe_img_timestamp = meta["keyframe_img_timestamp"]
+    tracker.current_depth_timestamp = meta["current_depth_timestamp"]
+    tracker.current_img_timestamp = meta["current_img_timestamp"]
+    tracker.keyframe_switches = meta["keyframe_switches"]
+    _reset_reloc_ring(tracker)
+    traj_q = torch.from_numpy(np.asarray(state["traj_q"], np.float32))
+    traj_t = torch.from_numpy(np.asarray(state["traj_t"], np.float32))
+    trajectory = [Pose(traj_q[i], traj_t[i]) for i in range(traj_q.shape[0])]
+    keyframe_ids = list(meta["keyframe_ids"])
+    kf_images = (
+        {fid: (np.asarray(state["kf_depths"][k]), np.asarray(state["kf_grays"][k])) for k, fid in enumerate(keyframe_ids)}
+        if has_kf else None
+    )
+    return trajectory, list(meta["timestamps"]), keyframe_ids, kf_images, meta["frames_done"]

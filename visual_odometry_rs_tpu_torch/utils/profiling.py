@@ -86,25 +86,27 @@ def profile_device(fn: Callable[[], None]) -> DeviceProfile:
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - start)
+    # the raw events: ``key_averages`` builds an event tree in Python, which
+    # takes minutes for the 10^5 launches of a pose-graph solve
     launches = copies = 0
     busy_us = 0.0
     kernel_ms: Dict[str, float] = {}
     kernel_calls: Dict[str, int] = {}
     host_op_calls: Dict[str, int] = {}
-    for event in prof.key_averages():
-        if event.key.startswith("aten::"):
-            host_op_calls[event.key] = event.count
-        if event.key.startswith("cudaLaunchKernel"):
-            launches += event.count
-        # device-side entries (kernels, copies) carry their own device time;
-        # a host op's device time is the sum over the kernels it launched
-        if event.device_type == DeviceType.CUDA:
-            device_us = float(event.self_device_time_total)
+    for event in prof.profiler.kineto_results.events():
+        name = event.name()
+        if event.device_type() == DeviceType.CUDA:
+            # device-side entries (kernels, copies) carry their own device time
+            device_us = event.duration_ns() / 1e3
             busy_us += device_us
-            kernel_ms[event.key] = device_us / 1e3
-            kernel_calls[event.key] = event.count
-            if event.key.startswith("Memcpy DtoH"):
-                copies += event.count
+            kernel_ms[name] = kernel_ms.get(name, 0.0) + device_us / 1e3
+            kernel_calls[name] = kernel_calls.get(name, 0) + 1
+            if name.startswith("Memcpy DtoH"):
+                copies += 1
+        elif name.startswith("cudaLaunchKernel"):
+            launches += 1
+        elif name.startswith("aten::"):
+            host_op_calls[name] = host_op_calls.get(name, 0) + 1
     return DeviceProfile(
         wall_ms, launches, copies, busy_us / 1e3, kernel_ms, kernel_calls, host_op_calls
     )
