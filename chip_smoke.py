@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (``vors_track``'s streaming tracker, the
-batched driver, the options, the CLIs from files and ``vors_slam``) on the card
+batched driver, the options, the CLIs from files, ``vors_slam`` and the
+photometric window of ``vors_refine``) on the card
 at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
 (non-zero exit, no result line) unless every phase passes:
 
@@ -102,6 +103,24 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    memory`` and a ``--save-state``/``--resume`` split print the straight
    run's lines; the wall a frame split into tracking, loop closure, pose
    graph and export.
+10. The photometric window (plain torch, no kernel of its own) at
+   ``vors_refine``'s defaults: 640x480, 6 levels, cap 2048, a window of 6.
+   (a) ``solve_window`` on frames 0..5 of phase 4's sequence, the poses of
+   its ground truth with a seeded cumulative drift (``refine_drifted``):
+   the card within ``WINDOW_CARD_ATOL`` of the CPU in as many LM
+   iterations, two card runs bit-equal, ms a solve (CUDA events),
+   launches, host reads and the device's busy share (``profile_device``); plain and with brightness and
+   Huber.  (b) ``vors_refine`` on phase 4's 41 frames as PNGs with that
+   drifted trajectory, sliding and chunked: the refined ATE below the
+   drifted input's and within 1.5x the JAX package's on the same files
+   (``JAX_REFINE``, ``chip_smoke_reference.py``); a run split by
+   ``--save-state``/``--resume`` prints the straight run's lines and writes
+   its PLY file, which reads back.  (c) ``vors_refine --batch`` on phase
+   6's first 4 lanes: each lane within ``WINDOW_LANE_ATOL`` of its one-lane
+   sliding run.  (d) ``vors_slam --refine-window 6`` on phase 9's files:
+   JAX's counts and the ATE within 1.5x of JAX's (``JAX_SLAM_REFINE``), six
+   solver launches a tracked frame and six for the verification, the
+   ``.window`` store with ``--resume`` bit-equal to the straight run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
@@ -213,6 +232,25 @@ PGO_E_RTOL, PGO_NODE_ATOL = 1e-3, 5e-5
 # the JAX package's vors_slam (CPU, gather sampling) on phase 9's files, by
 # chip_smoke_reference.py
 JAX_SLAM = {"keyframes": 7, "edges": 10, "points": 22276, "ate": 0.0017311276198341981}
+# phase 10: the photometric window at vors_refine's defaults (cap 2048, a
+# window of 6) on phase 4's 41 frames; the input trajectory is the ground
+# truth with a seeded cumulative drift (tests/test_cli.py's form, each twist
+# component N(0, REFINE_DRIFT) a frame: about 0.5 px a frame at 640x480)
+REFINE_CAP, REFINE_WINDOW = 2048, 6
+REFINE_DRIFT, REFINE_DRIFT_SEED = 0.001, 5
+REFINE_SPLIT = 20  # the split run saves after frame 20
+REFINE_LANES = 4  # (c): phase 6's first lanes
+# the card against the CPU (measured 2.4e-7 m plain, 3.1e-7 with brightness
+# and Huber), and --batch lanes against one-lane runs (measured 4.7e-7): the
+# bounds of tests/test_torch_kernel_cuda.py and of the CPU batch tests, far
+# below the drift the solve removes (REFINE_DRIFT a component a frame)
+WINDOW_CARD_ATOL, WINDOW_LANE_ATOL = 1e-4, 1e-5
+WINDOW_SOLVE_REPS = 5
+# the JAX package's vors_refine and vors_slam --refine-window (CPU, gather
+# sampling) on phase 10's files, by chip_smoke_reference.py
+# (drifted input 2.8421928787715537e-3 m)
+JAX_REFINE = {"sliding": 0.001547715942726918, "chunked": 0.0027843104853928348}
+JAX_SLAM_REFINE = {"keyframes": 7, "edges": 10, "points": 22276, "ate": 0.00018647929686623144}
 
 
 def drift_grays(grays):
@@ -255,6 +293,39 @@ def slam_sequence():
     twists = np.asarray([out] * SLAM_LEG + [-out] * SLAM_LEG, np.float32)
     return synthetic.generate_sequence(nb_frames=2 * SLAM_LEG + 1, height=HEIGHT, width=WIDTH, seed=SLAM_SEED,
                                        twist_per_frame=twists)
+
+
+def refine_drifted(poses, seed=REFINE_DRIFT_SEED, scale=REFINE_DRIFT):
+    """Camera-to-world poses with a seeded cumulative drift: pose_f ∘ D_f,
+    D_f = D_{f-1} ∘ exp(xi_f), xi_f ~ N(0, scale) per component."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.math import se3
+
+    rng = np.random.default_rng(seed)
+    drift = [pose_mod.identity()]
+    for _ in range(1, len(poses)):
+        step = se3.exp(torch.from_numpy((rng.normal(size=6) * scale).astype(np.float32)))
+        drift.append(pose_mod.compose(drift[-1], step))
+    return [pose_mod.compose(p, d) for p, d in zip(poses, drift)]
+
+
+def write_refine_inputs(root, grays, depths, timestamps, poses, seed=REFINE_DRIFT_SEED):
+    """A sequence as PNGs and its drifted trajectory (one TUM line a frame
+    after the first): ``(associations, trajectory, drifted poses)``."""
+    import os
+
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+
+    assoc = tum_rgbd.write_sequence(root, grays, depths, timestamps)
+    drifted = refine_drifted(poses, seed)
+    traj = os.path.join(root, "drifted.txt")
+    with open(traj, "w") as f:
+        f.write("".join(tum_rgbd.Frame(timestamp=float(t), pose=p).to_string() + "\n"
+                        for t, p in zip(timestamps[1:], drifted[1:])))
+    return assoc, traj, drifted
 
 
 def slam_counts(err: str):
@@ -631,18 +702,19 @@ def _frame_times(label, seconds):
           f"fps {1e3 / statistics.mean(steady):.1f}")
 
 
-def _diverse_lanes():
+def _diverse_lanes(nb_lanes=LANES, with_poses=False):
     """``bench.py``'s diverse lanes (bench.py:130-145): a magnitude ladder of
     0.004-0.04 m per frame, a direction and a rotation of 0.002 rad scale
     from ``default_rng(42)``, texture seed 100 + lane, the fr1 intrinsics.
-    Returns the intrinsics and (F + 1, B, H, W) depths and grays."""
+    Returns the intrinsics and (F + 1, B, H, W) depths and grays of the
+    first ``nb_lanes`` lanes (and, ``with_poses``, their ground truths)."""
     import numpy as np
 
     from visual_odometry_rs_tpu_torch.dataset import synthetic
 
     rng = np.random.default_rng(42)
     seqs = []
-    for lane in range(LANES):
+    for lane in range(nb_lanes):
         mag = 0.004 + 0.036 * lane / (LANES - 1)
         direction = rng.normal(size=3)
         direction = mag * direction / np.linalg.norm(direction)
@@ -651,8 +723,8 @@ def _diverse_lanes():
             nb_frames=LANE_FRAMES + 1, height=HEIGHT, width=WIDTH, seed=100 + lane,
             twist_per_frame=np.concatenate([direction, rot]),
         ))
-    return (seqs[0].intrinsics, np.stack([s.depths for s in seqs], axis=1),
-            np.stack([s.grays for s in seqs], axis=1))
+    out = (seqs[0].intrinsics, np.stack([s.depths for s in seqs], axis=1), np.stack([s.grays for s in seqs], axis=1))
+    return (*out, [s.poses for s in seqs]) if with_poses else out
 
 
 def _check_frames(cadence):
@@ -1846,6 +1918,220 @@ def phase_slam(seq, dev):
         shutil.rmtree(root, ignore_errors=True)
     return total
 
+# ---------------------------------------------------------------------------
+# Phase 10: the photometric window
+# ---------------------------------------------------------------------------
+
+
+def _full_width_window(seq, device):
+    """(a)'s window: frames 0..5 of phase 4's sequence at 640x480, the
+    keyframe's candidates at cap 2048, the keyframe->frame motions of the
+    drifted ground truth (``refine_drifted``)."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.math.pose import Pose
+    from visual_odometry_rs_tpu_torch.models import photometric_ba
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import pyramid
+    from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor
+
+    config = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=REFINE_CAP)
+    intrinsics = seq.intrinsics.to(device)
+    pyr = pyramid.mean_pyramid(LEVELS, image_tensor(seq.grays[0], device))
+    kf = tracker_mod.precompute_keyframe(config, intrinsics, depth_tensor(seq.depths[0], device), pyr)
+    drifted = refine_drifted(seq.poses[:REFINE_WINDOW])
+    rel = [pose_mod.compose(pose_mod.inverse(c), drifted[0]) for c in drifted]
+    poses = Pose(torch.stack([p.q for p in rel]).to(device), torch.stack([p.t for p in rel]).to(device))
+    images = torch.from_numpy(np.stack(seq.grays[:REFINE_WINDOW]).astype(np.float32)).to(device)
+    return photometric_ba.window_from_tracking(config, intrinsics, kf.levels, images, poses)
+
+
+def phase_window_solve(seq, dev):
+    """Phase 10a: ``solve_window`` at full width on the card against the
+    CPU, two card runs bit-equal, ms, launches, host reads and busy share
+    a solve; plain and with brightness and Huber."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.models import photometric_ba
+    from visual_odometry_rs_tpu_torch.utils import profiling
+
+    win, win_cpu = _full_width_window(seq, dev), _full_width_window(seq, torch.device("cpu"))
+    photometric_ba.solve_window(win)  # the linear-algebra libraries' first use is slow
+    _sync(dev)
+    rows = {}
+    for name, opts in (("plain", {}), ("brightness + Huber 10", {"brightness": True, "robust_delta": 10.0})):
+        a, b = photometric_ba.solve_window(win, **opts), photometric_ba.solve_window(win, **opts)
+        for x, y in zip((a.poses.q, a.poses.t, a.idepth, a.energy, a.ab, a.nb_iter),
+                        (b.poses.q, b.poses.t, b.idepth, b.energy, b.ab, b.nb_iter)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"solve_window ({name}): two runs on the card differ")
+        start = time.perf_counter()
+        cpu = photometric_ba.solve_window(win_cpu, **opts)
+        cpu_ms = 1e3 * (time.perf_counter() - start)
+        dt = float((a.poses.t.cpu() - cpu.poses.t).abs().max())
+        dq = float((a.poses.q.cpu() - cpu.poses.q).abs().max())
+        if not (max(dt, dq) <= WINDOW_CARD_ATOL and int(a.nb_iter) == int(cpu.nb_iter)):
+            raise AssertionError(f"solve_window ({name}): card against CPU |dt| {dt}, |dq| {dq}, LM iterations "
+                                 f"{int(a.nb_iter)} against {int(cpu.nb_iter)}")
+        ms = _time_ms(lambda: photometric_ba.solve_window(win, **opts), reps=WINDOW_SOLVE_REPS, warmup=1)
+        for _ in range(PROFILER_ATTEMPTS):
+            prof = profiling.profile_device(lambda: photometric_ba.solve_window(win, **opts))
+            if prof.launches > 0 and prof.device_to_host_copies > 0:
+                break
+        iters = int(a.nb_iter)
+        rows[name] = dict(ms=ms, cpu_ms=cpu_ms, launches=prof.launches, reads=prof.device_to_host_copies,
+                          busy=prof.busy_share, iters=iters)
+        print(f"solve_window ({name}), {REFINE_WINDOW} frames x {REFINE_CAP} candidates at {WIDTH}x{HEIGHT}: "
+              f"{iters} LM iterations (CPU {int(cpu.nb_iter)}), energy {float(a.energy):.1f} (CPU "
+              f"{float(cpu.energy):.1f}); card against CPU |dt| {dt:.3e} m, |dq| {dq:.3e} (atol {WINDOW_CARD_ATOL}); "
+              f"two card runs bit-equal; {ms:.3f} ms a solve (CUDA events, median of {WINDOW_SOLVE_REPS}) against "
+              f"{cpu_ms:.1f} ms on the host CPU; {prof.launches} launches = {prof.launches / max(iters, 1):.0f} an "
+              f"iteration, {prof.device_to_host_copies} host reads, device busy {100 * prof.busy_share:.2f}% of "
+              f"{prof.wall_ms:.1f} ms (profiler on)")
+        top = sorted(prof.host_op_calls.items(), key=lambda kv: -kv[1])[:12]
+        print("  host operators a solve, most called first: " + ", ".join(f"{k} {v}" for k, v in top))
+    return rows
+
+
+def _ply_count(err, what="refined map points"):
+    import re
+
+    m = re.search(rf"exported (\d+) {what}", err)
+    if not m:
+        raise AssertionError(f"no export count in:\n{err[-2000:]}")
+    return int(m.group(1))
+
+
+def phase_refine(seq, slam_seq, dev):
+    """Phase 10b-d: ``vors_refine`` (sliding, chunked, resume, export,
+    ``--batch``) and ``vors_slam --refine-window`` from PNG files; returns
+    the ``lm_solve_level`` launches of the ``vors_slam`` runs."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from visual_odometry_rs_tpu_torch.cli import vors_refine, vors_slam
+    from visual_odometry_rs_tpu_torch.dataset import tum_rgbd
+    from visual_odometry_rs_tpu_torch.eval import ate
+    from visual_odometry_rs_tpu_torch.ops import lm_solve
+    from visual_odometry_rs_tpu_torch.utils import pointcloud
+
+    device_flags = [] if dev.type == "cuda" else ["--cpu"]
+    # vors_refine's defaults at 640x480, written out
+    refine_flags = [*device_flags, "--nb-levels", str(LEVELS), "--candidate-cap", str(REFINE_CAP), "--window",
+                    str(REFINE_WINDOW)]
+    root = tempfile.mkdtemp(prefix="chip_smoke_refine_")
+    try:
+        # (b) phase 4's 41 frames, the drifted ground truth; vors_refine's defaults
+        assoc, traj, drifted = write_refine_inputs(os.path.join(root, "seq"), seq.grays[:FRAMES],
+                                                   seq.depths[:FRAMES], seq.timestamps[:FRAMES], seq.poses[:FRAMES])
+        truth = seq.poses[1:FRAMES]
+        ate_in = ate.ate_rmse(drifted[1:], truth)
+        ply = os.path.join(root, "map.ply")
+        outs = {}
+        for mode in ("sliding", "chunked"):
+            extra = ["--export-cloud", ply] if mode == "sliding" else []
+            out, err, wall = _cli(vors_refine.main, ["fr1", assoc, traj, *refine_flags, "--mode", mode, *extra])
+            if mode == "sliding":
+                points = _ply_count(err)
+            err_mode = ate.ate_rmse([f.pose for f in tum_rgbd.parse_trajectory(out)], truth)
+            ref = JAX_REFINE[mode]
+            print(f"vors_refine --mode {mode} fr1 from files, {FRAMES - 1} frames at {WIDTH}x{HEIGHT}, cap "
+                  f"{REFINE_CAP}, window {REFINE_WINDOW}: ATE {err_mode:.6e} m from the drifted input's {ate_in:.6e}; "
+                  f"the JAX package's {ref}; wall {wall:.2f} s = {1e3 * wall / (FRAMES - 1):.1f} ms a frame")
+            if not (err_mode < ate_in and err_mode <= 1.5 * ref):
+                raise AssertionError(f"vors_refine {mode}: ATE {err_mode} not below {ate_in} or above 1.5 x {ref}")
+            outs[mode] = out
+        pts, inten = pointcloud.read_ply(ply)
+        if not (len(pts) == points > 0 and np.isfinite(pts).all()):
+            raise AssertionError(f"the PLY file holds {len(pts)} points, vors_refine exported {points}")
+        ply_bytes = open(ply, "rb").read()
+        lines = open(assoc).read().splitlines()
+        first = _write_subset(os.path.join(root, "seq", "first.txt"), lines, 0, 1 + REFINE_SPLIT)
+        first_traj = os.path.join(root, "seq", "first_traj.txt")
+        with open(first_traj, "w") as f:
+            f.write("".join(open(traj).readlines()[:REFINE_SPLIT]))
+        ckpt = os.path.join(root, "window.npz")
+        _cli(vors_refine.main, ["fr1", first, first_traj, *refine_flags, "--save-state", ckpt, "--export-cloud", ply])
+        resumed, err_r, _ = _cli(vors_refine.main, ["fr1", assoc, traj, *refine_flags, "--resume", ckpt,
+                                                    "--export-cloud", ply])
+        if resumed != outs["sliding"] or open(ply, "rb").read() != ply_bytes or "resumed from" not in err_r:
+            raise AssertionError("vors_refine --save-state/--resume differs from the straight run")
+        print(f"vors_refine split at frame {REFINE_SPLIT} by --save-state/--resume ({os.path.getsize(ckpt)} bytes): "
+              f"stdout and the PLY file ({points} refined map points, read back) bit-equal to the straight run")
+
+        # (c) --batch on phase 6's first lanes against one-lane sliding runs
+        _, lane_depths, lane_grays, lane_poses = _diverse_lanes(REFINE_LANES, with_poses=True)
+        pairs, singles = [], []
+        for b in range(REFINE_LANES):
+            a, t, _ = write_refine_inputs(os.path.join(root, f"lane{b}"), lane_grays[:, b], lane_depths[:, b],
+                                          np.arange(LANE_FRAMES + 1) / 30.0, lane_poses[b], seed=REFINE_DRIFT_SEED + b)
+            pairs += [a, t]
+            singles.append(_cli(vors_refine.main, ["fr1", a, t, *refine_flags])[0])
+        out_dir = os.path.join(root, "batch")
+        _, _, wall_b = _cli(vors_refine.main, ["fr1", *pairs, *refine_flags, "--batch", "--out-dir", out_dir])
+        worst = 0.0
+        for b in range(REFINE_LANES):
+            lane = _poses_of(open(os.path.join(out_dir, f"lane{b}.txt")).read())
+            worst = max(worst, float((lane - _poses_of(singles[b])).abs().max()))
+        if not worst <= WINDOW_LANE_ATOL:
+            raise AssertionError(f"vors_refine --batch: a lane differs from its one-lane run by {worst}")
+        print(f"vors_refine --batch, {REFINE_LANES} of phase 6's lanes x {LANE_FRAMES} frames: every lane within "
+              f"{worst:.3e} of its one-lane sliding run (atol {WINDOW_LANE_ATOL}); wall {wall_b:.2f} s for the "
+              f"batch")
+
+        # (d) vors_slam --refine-window on phase 9's files
+        slam_assoc = tum_rgbd.write_sequence(os.path.join(root, "slam"), slam_seq.grays, slam_seq.depths,
+                                             slam_seq.timestamps)
+        slam_flags = [*device_flags, "--nb-levels", str(LEVELS), "--candidate-cap", str(CAP),
+                      "--loop-max-candidates", str(SLAM_MAX_CANDIDATES), "--refine-window", str(REFINE_WINDOW)]
+        frames = len(slam_seq.poses)
+        total = 0
+
+        def slam(argv, expect_frames):
+            nonlocal total
+            lm_solve.lm_solve_level.launches = 0
+            out, err, seconds = _cli(vors_slam.main, ["fr1", *argv, *slam_flags])
+            launches = lm_solve.lm_solve_level.launches
+            total += launches
+            expect = LEVELS * (expect_frames + int(slam_counts(err)[1] > 0))
+            if dev.type == "cuda" and launches != expect:
+                raise AssertionError(f"vors_slam --refine-window {argv[1:]}: {launches} solver launches, "
+                                     f"expected {expect}")
+            return out, err, seconds
+
+        slam_ply = os.path.join(root, "slam.ply")
+        out, err, wall = slam([slam_assoc, "--export-cloud", slam_ply, "--cloud-voxel", "0"], frames - 1)
+        counts = slam_counts(err)
+        err_slam = ate.ate_rmse([f.pose for f in tum_rgbd.parse_trajectory(out)], slam_seq.poses[1:])
+        print(f"vors_slam --refine-window {REFINE_WINDOW} fr1 from files, {frames - 1} frames: {counts[0]} keyframes, "
+              f"{counts[1]} verified loop edges, {counts[2]} map points; ATE {err_slam:.6e} m; the JAX package's "
+              f"{JAX_SLAM_REFINE}; wall {wall:.2f} s = {1e3 * wall / (frames - 1):.1f} ms a frame")
+        if counts != (JAX_SLAM_REFINE["keyframes"], JAX_SLAM_REFINE["edges"], JAX_SLAM_REFINE["points"]):
+            raise AssertionError(f"vors_slam --refine-window counts {counts} differ from the JAX package's")
+        if not err_slam <= 1.5 * JAX_SLAM_REFINE["ate"]:
+            raise AssertionError(f"vors_slam --refine-window ATE {err_slam} above 1.5 x {JAX_SLAM_REFINE['ate']}")
+        slam_lines = open(slam_assoc).read().splitlines()
+        slam_first = _write_subset(os.path.join(root, "slam", "first.txt"), slam_lines, 0, 1 + SLAM_LEG)
+        slam_ckpt = os.path.join(root, "slam.npz")
+        slam([slam_first, "--save-state", slam_ckpt], SLAM_LEG)
+        if not os.path.exists(slam_ckpt + ".window"):
+            raise AssertionError("vors_slam --refine-window --save-state wrote no .window store")
+        resumed, err_r, _ = slam([slam_assoc, "--resume", slam_ckpt], frames - 1 - SLAM_LEG)
+        if resumed != out or f"resumed from {slam_ckpt}: {SLAM_LEG} frames tracked" not in err_r:
+            raise AssertionError("vors_slam --refine-window --save-state/--resume differs from the straight run")
+        print(f"vors_slam --refine-window split at frame {SLAM_LEG} by --save-state/--resume (window store "
+              f"{os.path.getsize(slam_ckpt + '.window')} bytes): stdout bit-equal to the straight run; {total} solver "
+              f"launches in the three runs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -1996,6 +2282,12 @@ def main() -> int:
     solve_launches += phase_loop_closure(slam_seq, dev)
     solve_launches += phase_slam(slam_seq, dev)
     print(f"phase 9 (the SLAM back end): {time.perf_counter() - nine:.1f} s")
+
+    # phase 10: the photometric window
+    ten = time.perf_counter()
+    phase_window_solve(seq, dev)
+    solve_launches += phase_refine(seq, slam_seq, dev)
+    print(f"phase 10 (the photometric window): {time.perf_counter() - ten:.1f} s")
 
     def row(rows):  # level 0 as the tracker buckets it
         return next(r for r in rows if r["level"] == 0 and r["shape"] == "bucket")

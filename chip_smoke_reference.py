@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The JAX package's ATE on ``chip_smoke.py``'s streaming sequences (CPU).
 
-    JAX_PLATFORMS=cpu python3 chip_smoke_reference.py [plain|huber+brightness|dso_fixed|relocalize|slam ...]
+    JAX_PLATFORMS=cpu python3 chip_smoke_reference.py \
+        [plain|huber+brightness|dso_fixed|relocalize|slam|refine|refine_chunked|slam_refine ...]
 
 ``chip_smoke.py`` holds the port's ATE on the card within 1.5x of these
 numbers (``JAX_ATE`` for phase 4, ``JAX_ATE_OPTIONS`` for phase 7).  Each
@@ -9,8 +10,12 @@ run tracks the 40 frames that the smoke test tracks, at 640x480 with 6
 levels and cap 8192, bucketing on and gather sampling, through the JAX
 package's host ``Tracker``, and prints one JSON line.  ``slam`` runs the JAX
 package's ``vors_slam`` on phase 9's sequence from PNG files and prints the
-keyframe, loop-edge and map-point counts and the ATE (``JAX_SLAM``).  A run holds a few GiB
-of host memory; the script stops itself if it passes ``MEMORY_LIMIT_GIB``.
+keyframe, loop-edge and map-point counts and the ATE (``JAX_SLAM``).  ``refine`` and
+``refine_chunked`` run the JAX package's ``vors_refine`` (sliding and chunked, its default
+flags) on phase 10's files, phase 4's 41 frames with a seeded drift on their ground truth, and
+print the refined ATE (``JAX_REFINE``); ``slam_refine`` runs ``vors_slam --refine-window 6``
+on phase 9's files (``JAX_SLAM_REFINE``).  A run holds a few GiB of host memory; the script
+stops itself if it passes ``MEMORY_LIMIT_GIB``.
 """
 
 from __future__ import annotations
@@ -91,7 +96,7 @@ def jax_ate(kind, overrides) -> float:
     return float(ate.ate_rmse(est, truth))
 
 
-def jax_slam() -> dict:
+def jax_slam(refine_window: int = 0) -> dict:
     """The JAX package's ``vors_slam`` through its ``main`` on phase 9's
     sequence written as PNGs by the port's writer: keyframes, verified loop
     edges, map points (``--cloud-voxel 0``) and the ATE of frames 1.. ."""
@@ -114,7 +119,8 @@ def jax_slam() -> dict:
         with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
             rc = vors_slam.main(["fr1", assoc, "--cpu", "--interp", "gather", "--nb-levels", str(smoke.LEVELS),
                                  "--candidate-cap", str(smoke.CAP), "--loop-max-candidates",
-                                 str(smoke.SLAM_MAX_CANDIDATES), "--export-cloud", os.path.join(root, "map.ply")])
+                                 str(smoke.SLAM_MAX_CANDIDATES), "--export-cloud", os.path.join(root, "map.ply"),
+                                 "--refine-window", str(refine_window)])
     if rc != 0:
         raise RuntimeError(f"vors_slam exited {rc}: {err.getvalue()[-2000:]}")
     keyframes, edges, points = smoke.slam_counts(err.getvalue())
@@ -123,12 +129,52 @@ def jax_slam() -> dict:
             "ate": float(ate.ate_rmse([f.pose for f in frames], seq.poses[1:]))}
 
 
+def _run_cli(main, argv):
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{main.__module__} exited {rc}: {err.getvalue()[-2000:]}")
+    return out.getvalue(), err.getvalue()
+
+
+def jax_refine(mode) -> dict:
+    """The JAX package's ``vors_refine --mode MODE`` (its defaults, gather
+    sampling) on phase 10's files: the drifted input's and the refined ATE."""
+    import tempfile
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from visual_odometry_rs_tpu.cli import vors_refine
+
+    from visual_odometry_rs_tpu_torch.dataset import synthetic, tum_rgbd
+    from visual_odometry_rs_tpu_torch.eval import ate
+
+    seq = synthetic.generate_sequence(nb_frames=smoke.FRAMES, height=smoke.HEIGHT, width=smoke.WIDTH, seed=0,
+                                      twist_per_frame=smoke.TWIST)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reference_") as root:
+        assoc, traj, drifted = smoke.write_refine_inputs(root, seq.grays, seq.depths, seq.timestamps, seq.poses)
+        out, _ = _run_cli(vors_refine.main, ["fr1", assoc, traj, "--cpu", "--interp", "gather", "--mode", mode])
+    frames = tum_rgbd.parse_trajectory(out)
+    return {"drifted_ate": float(ate.ate_rmse(drifted[1:], seq.poses[1:])),
+            "ate": float(ate.ate_rmse([f.pose for f in frames], seq.poses[1:]))}
+
+
 def main(argv) -> int:
     threading.Thread(target=_watch_memory, daemon=True).start()
-    for name in argv or [*RUNS, "slam"]:
+    for name in argv or [*RUNS, "slam", "refine", "refine_chunked", "slam_refine"]:
         start = time.time()
-        if name == "slam":
-            print(json.dumps({"run": name, "jax_slam": jax_slam(), "seconds": round(time.time() - start, 1)}),
+        if name in ("slam", "slam_refine"):
+            value = jax_slam(smoke.REFINE_WINDOW if name == "slam_refine" else 0)
+            print(json.dumps({"run": name, "jax_slam": value, "seconds": round(time.time() - start, 1)}), flush=True)
+            continue
+        if name in ("refine", "refine_chunked"):
+            value = jax_refine("chunked" if name == "refine_chunked" else "sliding")
+            print(json.dumps({"run": name, "jax_refine": value, "seconds": round(time.time() - start, 1)}),
                   flush=True)
             continue
         kind, overrides = RUNS[name]

@@ -104,19 +104,25 @@ def test_cli_missing_file_and_no_cuda():
 
 
 def test_vors_slam_needs_cuda_and_names_the_window_item(tmp_path):
-    """``vors_slam`` runs on CUDA unless ``--cpu`` is given, and refuses the
-    photometric window (``--refine-window``), which is ROADMAP A11b."""
+    """``vors_slam`` runs on CUDA unless ``--cpu`` is given, with the
+    photometric window (``--refine-window``, ROADMAP A11b) too: on the CPU
+    with ``--cpu`` it refines every frame in its window."""
     from visual_odometry_rs_tpu_torch.cli import vors_slam
 
-    seq = tsyn.generate_sequence(nb_frames=2, height=48, width=64, seed=3)
+    seq = tsyn.generate_sequence(nb_frames=3, height=48, width=64, seed=3)
     assoc = ttum.write_sequence(str(tmp_path), seq.grays, seq.depths, seq.timestamps)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             vors_slam.main(["fr1", assoc])
-    err = io.StringIO()
-    with redirect_stderr(err):
-        assert vors_slam.main(["fr1", assoc, "--cpu", "--refine-window", "3"]) == 1
-    assert "A11b" in err.getvalue()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            vors_slam.main(["fr1", assoc, "--refine-window", "3"])
+    out, err = io.StringIO(), io.StringIO()
+    with redirect_stdout(out), redirect_stderr(err):
+        assert vors_slam.main(["fr1", assoc, "--cpu", "--nb-levels", "3", "--candidate-cap", "256",
+                               "--refine-window", "3"]) == 0
+    assert "sliding-window refinement on: window 3" in err.getvalue()
+    frames = ttum.parse_trajectory(out.getvalue())
+    assert len(frames) == 2 and all(np.isfinite(f.pose.t.numpy()).all() for f in frames)
 
 
 def test_synthetic_sequence_matches():

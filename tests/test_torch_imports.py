@@ -14,8 +14,8 @@ sys.modules["jax"] = None
 sys.modules["visual_odometry_rs_tpu"] = None
 for name in sys.argv[1:]:
     importlib.import_module(name)
-from visual_odometry_rs_tpu_torch.cli import vors_batch, vors_eval, vors_slam, vors_track
-for cli in (vors_track, vors_batch, vors_eval, vors_slam):
+from visual_odometry_rs_tpu_torch.cli import vors_batch, vors_eval, vors_refine, vors_slam, vors_track
+for cli in (vors_track, vors_batch, vors_eval, vors_slam, vors_refine):
     try:
         cli.main(["--help"])
     except SystemExit as e:
@@ -36,7 +36,8 @@ def test_port_imports_and_cli_help_without_jax():
     assert "visual_odometry_rs_tpu_torch.models.tracker" in modules
     assert "visual_odometry_rs_tpu_torch.parallel.batch" in modules
     for name in ("models.relocalize", "core.candidates.dso", "native", "utils.checkpoint", "utils.metrics",
-                 "cli.vors_eval", "parallel.pose_graph", "models.loop_closure", "utils.pointcloud", "cli.vors_slam"):
+                 "cli.vors_eval", "parallel.pose_graph", "models.loop_closure", "utils.pointcloud", "cli.vors_slam",
+                 "models.photometric_ba", "models.sliding_window", "cli.vors_refine"):
         assert f"visual_odometry_rs_tpu_torch.{name}" in modules
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD, *modules],
@@ -48,7 +49,12 @@ def test_port_imports_and_cli_help_without_jax():
                  "--brightness-model", "--relocalize", "--relocalize-energy"):
         assert proc.stdout.count(flag) >= 3, flag  # in the help of vors_track, vors_batch and vors_slam
     for flag in ("--save-state", "--resume"):
-        assert proc.stdout.count(flag) >= 3, flag  # documented in the three CLIs' help
+        assert proc.stdout.count(flag) >= 4, flag  # documented in the four CLIs' help
+    for flag in ("trajectory_file", "--batch", "--out-dir", "--max-frames", "--window", "--mode",
+                 "--no-marginalization", "--coarse-level", "--max-iterations", "--idepth-prior-weight",
+                 "--energy-tol", "--save-every", "--export-cloud", "--cloud-voxel", "--cpu"):
+        assert flag in proc.stdout, flag  # vors_refine's flags
+    assert "--interp" not in proc.stdout and "8.2 vs 10.6" not in proc.stdout
     for flag in ("--loop-radius", "--loop-max-angle", "--loop-min-gap", "--loop-max-candidates",
                  "--loop-energy-accept", "--save-every", "--export-cloud", "--cloud-voxel", "--refine-window",
                  "--refine-energy-tol", "--warm-start", "--level-iterations", "--kf-store"):

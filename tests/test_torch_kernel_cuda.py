@@ -592,3 +592,67 @@ def test_pose_graph_on_the_card(cuda_device):
         ref = solver(pose_graph.odometry_graph(nodes, loop_edges=loops))
         np.testing.assert_allclose(float(a.energy), float(ref.energy), rtol=1e-3, atol=1e-8)
         np.testing.assert_allclose(a.nodes.t.cpu().numpy(), ref.nodes.t.numpy(), atol=5e-5)
+
+
+def _window(device, frames=4):
+    """A window of ``frames`` frames of a 120x160 sequence, the poses
+    perturbed by 3e-3 twists (frame 0 the keyframe)."""
+    from visual_odometry_rs_tpu_torch.models import photometric_ba
+
+    seq = synthetic.generate_sequence(nb_frames=frames, height=H, width=W, seed=12)
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
+    kf = tracker.precompute_keyframe(
+        config, seq.intrinsics.to(device), torch.from_numpy(seq.depths[0].astype(np.int32)).to(device),
+        pyramid.mean_pyramid(LEVELS, torch.from_numpy(seq.grays[0]).to(device)),
+    )
+    rng = np.random.default_rng(1)
+    rel = []
+    for f, p in enumerate(seq.poses):
+        xi = torch.tensor(rng.normal(size=6) * 3e-3 * (f > 0), dtype=torch.float32)
+        rel.append(pose.compose(pose.compose(pose.inverse(p), seq.poses[0]), se3.exp(xi)))
+    poses = pose.Pose(torch.stack([p.q for p in rel]).to(device), torch.stack([p.t for p in rel]).to(device))
+    images = torch.from_numpy(np.stack(seq.grays).astype(np.float32)).to(device)
+    return photometric_ba.window_from_tracking(config, seq.intrinsics.to(device), kf.levels, images, poses)
+
+
+@pytest.mark.parametrize("options", [{}, {"brightness": True, "robust_delta": 10.0}], ids=["plain", "options"])
+def test_window_solve_on_the_card(cuda_device, options):
+    """``solve_window`` on the card: two runs bit-equal, the CPU's poses
+    within 1e-4 (the LM's accept/reject in a flat tail, ROADMAP C2)."""
+    from visual_odometry_rs_tpu_torch.models import photometric_ba
+
+    win = _window(cuda_device)
+    a = photometric_ba.solve_window(win, max_iterations=8, **options)
+    b = photometric_ba.solve_window(win, max_iterations=8, **options)
+    assert a.poses.q.device.type == "cuda"
+    for x, y in zip((a.poses.q, a.poses.t, a.idepth, a.energy, a.ab), (b.poses.q, b.poses.t, b.idepth, b.energy, b.ab)):
+        assert torch.equal(x, y)
+    cpu = photometric_ba.solve_window(_window(torch.device("cpu")), max_iterations=8, **options)
+    np.testing.assert_allclose(a.poses.t.cpu().numpy(), cpu.poses.t.numpy(), atol=1e-4)
+    np.testing.assert_allclose(a.poses.q.cpu().numpy(), cpu.poses.q.numpy(), atol=1e-4)
+    np.testing.assert_allclose(float(a.energy), float(cpu.energy), rtol=1e-3)
+
+
+def test_sliding_window_on_the_card(cuda_device):
+    """A ``SlidingWindow`` through keyframe switches and marginalizations on
+    the card: two runs bit-equal, the CPU's frame ids and poses within the
+    LM basin (5e-3)."""
+    from visual_odometry_rs_tpu_torch.models import sliding_window
+
+    seq = synthetic.generate_sequence(nb_frames=6, height=H, width=W, seed=21,
+                                      twist_per_frame=[0.03, 0.01, 0.0, 0.0, 0.01, 0.0])
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
+
+    def run(device):
+        sw = sliding_window.SlidingWindow(config, seq.intrinsics, window_size=3, max_iterations=6, device=device)
+        sw.start(seq.depths[0], seq.grays[0], seq.poses[0])
+        out = [sw.add_frame(seq.depths[f], seq.grays[f], seq.poses[f]) for f in range(1, len(seq.poses))]
+        return out, sw.keyframe_switches
+
+    (a, switches), (b, _), (cpu, cpu_switches) = run(cuda_device), run(cuda_device), run("cpu")
+    assert switches == cpu_switches >= 1
+    for (ids, poses), (ids_b, poses_b), (ids_c, poses_c) in zip(a, b, cpu):
+        assert ids == ids_b == ids_c
+        for p, q, c in zip(poses, poses_b, poses_c):
+            assert torch.equal(p.t, q.t) and torch.equal(p.q, q.q)
+            np.testing.assert_allclose(p.t.numpy(), c.t.numpy(), atol=5e-3)

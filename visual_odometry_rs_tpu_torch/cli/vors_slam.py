@@ -20,8 +20,11 @@ given, and fails if CUDA is absent.  ``--export-cloud`` writes the sparse
 map (``utils.pointcloud``); ``--save-state``/``--resume`` checkpoint the
 tracking phase in the JAX CLI's format; ``--kf-store disk`` (the default)
 keeps only the keyframes' frame ids and decodes their images again when
-loop closure or the export needs them.  The photometric window
-(``--refine-window``) is not ported yet (ROADMAP A11b).
+loop closure or the export needs them.  ``--refine-window W`` runs the
+photometric sliding window (``models.sliding_window``) beside tracking:
+every member of the window takes its refined pose, so loop closure sees
+the refined trajectory; ``--save-state`` writes its state to
+``PATH.window`` and ``--resume`` reads it back.
 """
 
 from __future__ import annotations
@@ -128,8 +131,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--cloud-voxel", type=float, default=0.0, metavar="METERS",
                         help="voxel-grid downsample the exported cloud (one centroid per cube); 0 = every point")
     parser.add_argument("--refine-window", type=int, default=0, metavar="W",
-                        help="sliding-window photometric BA alongside tracking; not ported yet (ROADMAP A11b): "
-                        "any W > 0 exits with an error.  0 = off")
+                        help="sliding-window photometric BA over a window of W frames (marginalization and "
+                        "prior transfer, models.sliding_window) alongside tracking; loop closure then sees "
+                        "the refined poses.  0 = off")
     parser.add_argument("--refine-energy-tol", type=float, default=1.0,
                         help="per-pair d_energy stop for the window solves (with --refine-window)")
     add_option_flags(parser, selectors=("coarse_to_fine", "dso", "dso_fixed"))
@@ -146,10 +150,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    if args.refine_window > 0:
-        print("--refine-window (the sliding-window photometric BA) is not ported yet (ROADMAP A11b); "
-              "run without it", file=sys.stderr)
-        return 1
 
     import torch
 
@@ -228,9 +228,33 @@ def main(argv=None) -> int:
         store.put(0, depth0, gray0)
         frames_done = 0
 
+    sw = None
+    if args.refine_window > 0:
+        from ..models import sliding_window
+
+        sw = sliding_window.SlidingWindow(config, intrinsics, window_size=max(2, args.refine_window),
+                                          energy_tol=args.refine_energy_tol, device=device)
+        if args.resume:
+            # the window's state rides in a file beside the slam checkpoint
+            try:
+                ckpt_mod.load_sliding_window(args.resume + ".window", sw)
+            except (ckpt_mod.CheckpointMismatchError, OSError, KeyError, ValueError) as e:
+                print(f"Cannot resume window state ({args.resume}.window): {e}", file=sys.stderr)
+                return 1
+            if sw._next_id != frames_done + 1:
+                print(f"Cannot resume: window checkpoint has consumed {sw._next_id} frames but the slam "
+                      f"checkpoint tracked {frames_done}: the two files are out of sync", file=sys.stderr)
+                return 1
+        else:
+            sw.start(depth0, gray0, trajectory[0])
+        print(f"sliding-window refinement on: window {sw.window_size}, loop closure will see refined poses",
+              file=sys.stderr)
+
     def save_all(done: int) -> None:
         ckpt_mod.save_slam(args.save_state, trk, trajectory, timestamps, keyframe_ids,
                            store.images_for_checkpoint(), done)
+        if sw is not None:
+            ckpt_mod.save_sliding_window(args.save_state + ".window", sw)
         print(f"checkpointed slam state to {args.save_state}", file=sys.stderr)
 
     todo = associations[1 + frames_done:]
@@ -241,6 +265,11 @@ def main(argv=None) -> int:
         ts, pose = trk.current_frame()
         trajectory.append(pose)
         timestamps.append(ts)
+        if sw is not None:
+            # every member of the window takes its jointly refined pose
+            ids, refined = sw.add_frame(depth, gray, pose)
+            for fid, p in zip(ids, refined):
+                trajectory[fid] = p
         if trk.keyframe_switches > before:
             keyframe_ids.append(idx)
             store.put(idx, depth, gray)

@@ -13,6 +13,13 @@ shares one set of intrinsics, so ``track_state_from_numpy`` checks that the
 lanes agree and ``track_state_to_numpy`` repeats them per lane.  The same
 holds for a ``RelocRing`` (``reloc_ring_from_numpy``/``reloc_ring_to_numpy``),
 whose keyframe leaves carry a (B, R) lead.
+
+The photometric window's types (``Window``, ``WindowResult``) convert the
+same way, and ``window_state_to_numpy``/``window_state_from_numpy`` carry a
+sliding window's state (the keyframe, its pose and refined inverse depths,
+the members' images and models, the prior H and its anchors, the frame ids
+and counters) between a JAX ``SlidingWindow``/``BatchedSlidingWindow`` read
+into numpy and the port's windows, either way.
 """
 
 from __future__ import annotations
@@ -22,7 +29,8 @@ import torch
 
 from .core.camera import Intrinsics
 from .math.pose import Pose
-from .models.tracker import KeyframeData, LevelObs
+from .models.photometric_ba import Window, WindowResult
+from .models.tracker import KeyframeData, LevelObs, map_keyframe
 from .parallel.batch import RelocRing, TrackState
 from .utils.types import to_numpy
 
@@ -135,3 +143,93 @@ def reloc_ring_to_numpy(ring: RelocRing) -> RelocRing:
         pose_q=to_numpy(ring.pose_q), pose_t=to_numpy(ring.pose_t),
         count=to_numpy(ring.count), head=to_numpy(ring.head),
     )
+
+
+def window_from_numpy(win, device="cpu") -> Window:
+    """A JAX ``Window`` of numpy leaves (one window, or stacked) → the port's."""
+    return Window(
+        tmpl_xs=_f32(win.tmpl_xs, device), tmpl_ys=_f32(win.tmpl_ys, device), tmpl_vals=_f32(win.tmpl_vals, device),
+        valid=torch.as_tensor(np.array(win.valid, bool), device=device), idepth=_f32(win.idepth, device),
+        poses=pose_from_numpy(win.poses, device), images=_f32(win.images, device),
+        intrinsics=intrinsics_from_numpy(win.intrinsics, device),
+    )
+
+
+def window_to_numpy(win: Window) -> Window:
+    return Window(*(pose_to_numpy(x) if isinstance(x, Pose) else Intrinsics(*(to_numpy(v) for v in x))
+                    if isinstance(x, Intrinsics) else to_numpy(x) for x in win))
+
+
+def window_result_from_numpy(res, device="cpu") -> WindowResult:
+    return WindowResult(
+        poses=pose_from_numpy(res.poses, device), idepth=_f32(res.idepth, device), energy=_f32(res.energy, device),
+        nb_iter=torch.as_tensor(np.array(res.nb_iter, np.int32), device=device), ab=_f32(res.ab, device),
+    )
+
+
+def window_result_to_numpy(res: WindowResult) -> WindowResult:
+    return WindowResult(*(pose_to_numpy(x) if isinstance(x, Pose) else to_numpy(x) for x in res))
+
+
+_WINDOW_HOST = ("frame_ids", "keyframe_switches", "_next_id")
+
+
+def _lane_axis(fn, kf_levels, kf_c2w, idepth, images, images_coarse, models, prior_H, prior_anchors):
+    """``fn`` applied to every tensor of a window's state."""
+    kf = map_keyframe(fn, KeyframeData(levels=tuple(kf_levels)))
+    return dict(kf_levels=kf.levels, kf_c2w=Pose(fn(kf_c2w.q), fn(kf_c2w.t)), idepth=fn(idepth),
+                images=[fn(x) for x in images], images_coarse=[fn(x) for x in images_coarse],
+                models=[Pose(fn(m.q), fn(m.t)) for m in models], prior_H=fn(prior_H),
+                prior_anchors=Pose(fn(prior_anchors.q), fn(prior_anchors.t)))
+
+
+_WINDOW_DEVICE = ("kf_levels", "kf_c2w", "idepth", "images", "images_coarse", "models", "prior_H", "prior_anchors")
+
+
+def window_state_to_numpy(sw) -> dict:
+    """A sliding window's state as numpy, in the JAX package's layout: the
+    attributes of its ``SlidingWindow`` (without the port's lane axis of 1)
+    or ``BatchedSlidingWindow`` (the intrinsics repeated per lane), with the
+    per-slot lists kept as lists."""
+    batched = sw.frame_ids is not None and np.ndim(sw.frame_ids) == 2
+    st = {k: getattr(sw, k) for k in _WINDOW_DEVICE}
+    if not batched:
+        st = _lane_axis(lambda x: x[0], **st)
+    kf = KeyframeData(levels=tuple(st["kf_levels"]))
+    return {
+        "kf_levels": (_keyframe_to_numpy_per_lane(kf, (sw.batch,)) if batched else keyframe_to_numpy(kf)).levels,
+        "kf_c2w": pose_to_numpy(st["kf_c2w"]), "idepth": to_numpy(st["idepth"]),
+        "images": [to_numpy(x) for x in st["images"]], "images_coarse": [to_numpy(x) for x in st["images_coarse"]],
+        "models": [pose_to_numpy(m) for m in st["models"]], "prior_H": to_numpy(st["prior_H"]),
+        "prior_anchors": pose_to_numpy(st["prior_anchors"]),
+        **{k: np.array(getattr(sw, k)) if k != "_next_id" else int(sw._next_id) for k in _WINDOW_HOST},
+    }
+
+
+def window_state_from_numpy(sw, state) -> None:
+    """Load a window state (``window_state_to_numpy``'s dict, or the same
+    attributes read from a JAX window) into the port's window ``sw``, on
+    its device.  A batched state's intrinsics must agree across lanes."""
+    device = sw.device
+    batched = np.ndim(state["frame_ids"]) == 2
+    kf = KeyframeData(levels=tuple(state["kf_levels"]))
+    st = dict(
+        kf_levels=(_keyframe_shared_from_numpy(kf, device) if batched else keyframe_from_numpy(kf, device)).levels,
+        kf_c2w=pose_from_numpy(state["kf_c2w"], device), idepth=_f32(state["idepth"], device),
+        images=[_f32(x, device) for x in state["images"]],
+        images_coarse=[_f32(x, device) for x in state["images_coarse"]],
+        models=[pose_from_numpy(m, device) for m in state["models"]], prior_H=_f32(state["prior_H"], device),
+        prior_anchors=pose_from_numpy(state["prior_anchors"], device),
+    )
+    if not batched:
+        st = _lane_axis(lambda x: x[None], **st)
+    for k, v in st.items():
+        setattr(sw, k, v)
+    if batched:
+        sw.batch = int(np.shape(state["frame_ids"])[1])
+        sw.frame_ids = np.asarray(state["frame_ids"], np.int64)
+        sw.keyframe_switches = np.asarray(state["keyframe_switches"], np.int64)
+    else:
+        sw.frame_ids = [int(i) for i in state["frame_ids"]]
+        sw.keyframe_switches = int(state["keyframe_switches"])
+    sw._next_id = int(state["_next_id"])

@@ -84,6 +84,23 @@ def apply(p: Pose, x: torch.Tensor) -> torch.Tensor:
     return quat_rotate(p.q, x) + p.t
 
 
+def rotation_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion [w,x,y,z] → 3x3 rotation matrix (…,3,3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack(
+        [
+            1.0 - 2.0 * (yy + zz), 2.0 * (xy - wz), 2.0 * (xz + wy),
+            2.0 * (xy + wz), 1.0 - 2.0 * (xx + zz), 2.0 * (yz - wx),
+            2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
+        ],
+        dim=-1,
+    )
+    return m.reshape(*q.shape[:-1], 3, 3)
+
+
 def renormalize_first_order(p: Pose) -> Pose:
     """``q' = 0.5 (3 - |q|^2) q``, the reference's cheap renormalization
     after every inverse-compositional update (lm_optimizer.rs:205-209)."""

@@ -15,7 +15,7 @@ import torch
 
 from ..utils.types import Float
 from . import so3
-from .pose import Pose, quat_normalize
+from .pose import Pose, quat_normalize, rotation_matrix
 
 EPSILON_TAYLOR_SERIES = 1e-2
 EPSILON_TAYLOR_SERIES_2 = EPSILON_TAYLOR_SERIES * EPSILON_TAYLOR_SERIES
@@ -27,6 +27,15 @@ def _eye3(batch_shape, like: torch.Tensor) -> torch.Tensor:
 
 def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.sum(m * v[..., None, :], dim=-1)
+
+
+def adjoint(p: Pose) -> torch.Tensor:
+    """Adjoint of a rigid motion, (…, 6, 6): ``exp(adjoint(p) @ xi) = p ∘
+    exp(xi) ∘ p⁻¹``; for the ``[v, w]`` layout ``[[R, hat(t) R], [0, R]]``."""
+    R = rotation_matrix(p.q)
+    top = torch.cat([R, torch.matmul(so3.hat(p.t), R)], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)
 
 
 def exp(xi: torch.Tensor) -> Pose:

@@ -7,8 +7,10 @@ archive whose arrays ``leaf_0 .. leaf_N`` are the leaves of the state in the
 JAX package's pytree order, and whose ``__meta__`` is a JSON object with the
 format version, a fingerprint of the configuration and the host values
 (timestamps, counters).  ``save_slam``/``load_slam`` checkpoint
-``vors_slam``'s tracking phase in the JAX module's SLAM layout; the window
-parts of the JAX module belong to the photometric window (ROADMAP A11b).
+``vors_slam``'s tracking phase in the JAX module's SLAM layout, and
+``save_sliding_window``/``load_sliding_window`` and
+``save_batched_window``/``load_batched_window`` the photometric windows of
+``models.sliding_window`` in the JAX module's window layouts.
 
 - **Leaf order.** ``tree_leaves`` flattens like ``jax.tree_util``: the keys
   of a dict sorted, the fields of a NamedTuple and the items of a tuple in
@@ -471,3 +473,162 @@ def load_slam(path: str, tracker):
         if has_kf else None
     )
     return trajectory, list(meta["timestamps"]), keyframe_ids, kf_images, meta["frames_done"]
+
+
+# ---------------------------------------------------------------------------
+# The photometric sliding windows (vors_refine, vors_slam --refine-window)
+# ---------------------------------------------------------------------------
+
+# the JAX package's window-solve option that the port has not (its sampler),
+# at the value that means what the port does
+_JAX_ONLY_SOLVE_OPTS = {"interp_method": "auto"}
+
+
+def sliding_window_fingerprint(sw) -> str:
+    """Stable hash of what decides a window's semantics: the tracker
+    configuration, the intrinsics, the window's geometry and its solve
+    options; the payload the JAX package hashes for the same window."""
+    return _hash({
+        "config": _config_payload(sw.config),
+        "intrinsics": _intrinsics_list(sw.intrinsics),
+        "window_size": sw.window_size,
+        "marginalize": sw.marginalize,
+        "switch_transfer": sw.switch_transfer,
+        "coarse_level": sw.coarse_level,
+        "solve_opts": dict(sorted({**sw._solve_opts, **_JAX_ONLY_SOLVE_OPTS}.items())),
+    })
+
+
+def _window_tree(state: dict, batched: bool, extra: dict) -> dict:
+    """A window state (``interop.window_state_to_numpy``) as the JAX
+    package's checkpoint tree: slots stacked on a leading axis."""
+    tree = {
+        "kf_levels": state["kf_levels"],
+        "kf_c2w": state["kf_c2w"],
+        "idepth": state["idepth"],
+        "images": np.stack(state["images"]),
+        "images_coarse": np.stack(state["images_coarse"]),
+        "models_q": np.stack([m.q for m in state["models"]]),
+        "models_t": np.stack([m.t for m in state["models"]]),
+        "prior_H": state["prior_H"],
+        "prior_anchors": state["prior_anchors"],
+    }
+    if batched:
+        tree["frame_ids"] = np.asarray(state["frame_ids"], np.int64)
+        tree["keyframe_switches"] = np.asarray(state["keyframe_switches"], np.int64)
+    for k, v in extra.items():
+        tree[f"extra_{k}"] = np.asarray(v)
+    return tree
+
+
+def _window_template(nb_levels: int, batched: bool, extra_keys) -> dict:
+    from ..core.camera import Intrinsics
+    from ..math.pose import Pose
+    from ..models.tracker import LevelObs
+
+    level = LevelObs(Intrinsics(*[0.0] * 5), *[0.0] * (len(LevelObs._fields) - 1))
+    template = {
+        "kf_levels": tuple(level for _ in range(nb_levels)), "kf_c2w": Pose(0.0, 0.0), "idepth": 0.0,
+        "images": 0.0, "images_coarse": 0.0, "models_q": 0.0, "models_t": 0.0, "prior_H": 0.0,
+        "prior_anchors": Pose(0.0, 0.0),
+    }
+    if batched:
+        template["frame_ids"] = 0
+        template["keyframe_switches"] = 0
+    for k in extra_keys:
+        template[f"extra_{k}"] = 0.0
+    return template
+
+
+def _load_window(path: str, sw, kind: str, what: str):
+    from .. import interop
+    from ..math.pose import Pose
+
+    meta = _peek_meta(path)
+    version = meta.get("format_version")
+    if version != FORMAT_VERSION or meta.get("kind") != kind:
+        raise CheckpointMismatchError(
+            f"not a v{FORMAT_VERSION} {kind.replace('_', '-')} checkpoint "
+            f"(version {version!r}, kind {meta.get('kind')!r}): {path}"
+        )
+    expected, found = sliding_window_fingerprint(sw), meta.get("config_fingerprint")
+    if found != expected:
+        raise CheckpointMismatchError(
+            f"checkpoint fingerprint {found!r} does not match the live {what}'s {expected!r}: refusing to "
+            f"resume with mismatched window semantics ({path})"
+        )
+    batched = kind == "batched_window"
+    if batched and sw.batch is not None and int(meta["batch"]) != int(sw.batch):
+        raise CheckpointMismatchError(f"checkpoint batch size {meta['batch']} != live {sw.batch} ({path})")
+    extra_keys = meta.get("extra_keys", [])
+    tree, _ = load_pytree(path, _window_template(sw.config.nb_levels, batched, extra_keys))
+    F = meta["nb_frames"]
+    state = {
+        "kf_levels": tree["kf_levels"], "kf_c2w": tree["kf_c2w"], "idepth": tree["idepth"],
+        "images": [tree["images"][i] for i in range(F)],
+        "images_coarse": [tree["images_coarse"][i] for i in range(F)],
+        "models": [Pose(tree["models_q"][i], tree["models_t"][i]) for i in range(F)],
+        "prior_H": tree["prior_H"], "prior_anchors": tree["prior_anchors"],
+        "frame_ids": tree["frame_ids"] if batched else meta["frame_ids"],
+        "keyframe_switches": tree["keyframe_switches"] if batched else meta["keyframe_switches"],
+        "_next_id": meta["next_id"],
+    }
+    interop.window_state_from_numpy(sw, state)
+    return {k: np.asarray(tree[f"extra_{k}"]) for k in extra_keys}
+
+
+def save_sliding_window(path: str, sw, extra: dict | None = None) -> None:
+    """Checkpoint a ``models.sliding_window.SlidingWindow`` mid-sequence, in
+    the JAX package's layout.  ``extra``: the caller's dict of name → array,
+    stored beside the state and returned by ``load_sliding_window`` (e.g.
+    ``vors_refine``'s refined-so-far trajectory)."""
+    from .. import interop
+
+    extra = extra or {}
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "sliding_window",
+        "config_fingerprint": sliding_window_fingerprint(sw),
+        "nb_frames": len(sw.models),
+        "frame_ids": list(map(int, sw.frame_ids)),
+        "keyframe_switches": int(sw.keyframe_switches),
+        "next_id": int(sw._next_id),
+        "extra_keys": sorted(extra.keys()),
+    }
+    save_pytree(path, _window_tree(interop.window_state_to_numpy(sw), False, extra), meta)
+
+
+def load_sliding_window(path: str, sw) -> dict:
+    """Restore ``save_sliding_window``'s state (of either package) into a new
+    ``SlidingWindow`` of the same configuration, on its device; returns the
+    caller's ``extra`` dict.  Raises ``CheckpointMismatchError`` for another
+    format, kind or fingerprint.  ``sw._next_id`` frames have then been
+    consumed."""
+    return _load_window(path, sw, "sliding_window", "window")
+
+
+def save_batched_window(path: str, bsw, extra: dict | None = None) -> None:
+    """Checkpoint a ``models.sliding_window.BatchedSlidingWindow`` (the
+    ``vors_refine --batch`` state), in the JAX package's layout: every leaf
+    with the lane axis, the intrinsics repeated per lane."""
+    from .. import interop
+
+    extra = extra or {}
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "batched_window",
+        "config_fingerprint": sliding_window_fingerprint(bsw),
+        "batch": int(bsw.batch),
+        "nb_frames": len(bsw.models),
+        "next_id": int(bsw._next_id),
+        "extra_keys": sorted(extra.keys()),
+    }
+    save_pytree(path, _window_tree(interop.window_state_to_numpy(bsw), True, extra), meta)
+
+
+def load_batched_window(path: str, bsw) -> dict:
+    """Restore ``save_batched_window``'s state (of either package) into a new
+    ``BatchedSlidingWindow`` of the same configuration; returns the caller's
+    ``extra`` dict.  Raises ``CheckpointMismatchError`` for another format,
+    kind, fingerprint or batch size."""
+    return _load_window(path, bsw, "batched_window", "batched window")
