@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths (``vors_track``'s streaming tracker, the
-batched driver, the options, the CLIs from files, ``vors_slam`` and the
-photometric window of ``vors_refine``) on the card
+batched driver, the options, the CLIs from files, ``vors_slam``, the
+photometric window of ``vors_refine``, affine alignment, the window BA and
+the example programs) on the card
 at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
 (non-zero exit, no result line) unless every phase passes:
 
@@ -121,6 +122,25 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    JAX's counts and the ATE within 1.5x of JAX's (``JAX_SLAM_REFINE``), six
    solver launches a tracked frame and six for the verification, the
    ``.window`` store with ``--resume`` bit-equal to the straight run.
+11. The rest of the single-device surface (plain torch, no kernel of its
+   own but the tracking examples' solver).  (a) ``affine2d.align`` at
+   640x480 (``tests/test_affine2d.py``'s smooth image, seed 1, its random
+   template, seed 2, 6 levels): two card runs bit-equal, the card within
+   ``AFFINE_CARD_ATOL`` of the CPU and ``AFFINE_JAX_ATOL`` of the JAX
+   package's parameters (``JAX_AFFINE``, ``chip_smoke_reference.py``), the
+   warp within ``tests/test_affine2d.py``'s bounds of the ground truth.
+   (b) ``parallel/ba.solve`` on ``tests/test_ba.py::make_problem``'s layout
+   at K=16 keyframes x P=4096 points (seed 5, perturb 0.01, 0.5 px noise):
+   two card runs bit-equal, the card within ``BA_CARD_ATOL`` of the CPU,
+   the energy below half its start, the ATE within 1.5x of JAX's
+   (``JAX_BA``).  (a) and (b) print ms a call (CUDA events), launches, host
+   reads and the device's busy share (``profile_device``).  (c) The 11
+   example programs through their ``main`` on the card, each against its
+   CPU run, the four tracking examples also against what the JAX
+   package's print (``JAX_EXAMPLES``, ``chip_smoke_reference.py``): ``track_synthetic`` one ``lm_solve_level``
+   launch a level and frame (35), ``relocalization`` one a level and frame of both runs plus
+   one a level per relocalization attempt, ``slam_loop_closure`` one a
+   level for all its pairs (3), the others none.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
@@ -251,6 +271,52 @@ WINDOW_SOLVE_REPS = 5
 # (drifted input 2.8421928787715537e-3 m)
 JAX_REFINE = {"sliding": 0.001547715942726918, "chunked": 0.0027843104853928348}
 JAX_SLAM_REFINE = {"keyframes": 7, "edges": 10, "points": 22276, "ate": 0.00018647929686623144}
+# phase 11: the rest of the single-device surface.  (a) tests/test_affine2d.py's
+# smooth image at full width, its random template, default_nb_levels = 6
+AFFINE_IMAGE_SEED, AFFINE_TEMPLATE_SEED = 1, 2
+AFFINE_LINEAR_ATOL, AFFINE_TRANSLATION_ATOL = 5e-3, 0.5  # tests/test_affine2d.py's bounds
+AFFINE_CARD_ATOL = 1e-4  # the card against the CPU (the CPU tests hold the CPU at 1e-4 of JAX)
+AFFINE_JAX_ATOL = 1e-3  # the card against the JAX package's parameters
+AFFINE_REPS = 5
+# (b) tests/test_ba.py::make_problem's layout at a keyframe window a VO back
+# end runs: every point seen in every keyframe, M = K P observations
+BA_K, BA_P, BA_SEED, BA_PERTURB, BA_NOISE_PX = 16, 4096, 5, 0.01, 0.5
+BA_CARD_ATOL = 1e-4  # poses, the card against the CPU
+BA_REPS = 3
+# the JAX package's align and solve (CPU) on these inputs, by chip_smoke_reference.py
+JAX_AFFINE = [-0.2853770852088928, 0.14704251289367676, -0.14576895534992218, -0.288555383682251,
+              80.38162994384766, 26.56746482849121]
+JAX_BA = {"energy": 29703.966796875, "nb_iter": 6, "ate": 0.000756545999256274}
+EXAMPLES = ("optim_rosenbrock", "optim_regression_1d", "optim_affine2d", "candidates_coarse_to_fine", "candidates_dso",
+            "dataset_tum_read_associations", "dataset_tum_read_trajectory", "track_synthetic", "relocalization",
+            "slam_loop_closure", "photometric_window")
+EXAMPLE_ATE_RTOL = 0.05  # a tracking example's ATE on the card against the CPU's
+# what the JAX package's four tracking examples print (CPU), by
+# chip_smoke_reference.py: the card and the CPU tests hold the port's to them
+JAX_EXAMPLES = {
+    "track_synthetic": {
+        "trajectory": [  # timestamp tx ty tz qx qy qz qw of frames 1..7
+            [0.03333333333333333, 0.0006884660106152296, -0.0008125060703605413, 0.006391104776412249, 0.0003152650606352836, -0.0009590806439518929, 0.0007242383435368538, 0.9999992251396179],
+            [0.06666666666666667, 0.013815865851938725, 0.00822421908378601, -0.0006216329638846219, -0.002315310062840581, -0.0022225494030863047, 0.000796156411524862, 0.9999945163726807],
+            [0.1, -0.007908039726316929, 0.004671408329159021, -0.013170908205211163, -0.004034523386508226, -0.0036027098540216684, 0.00016787182539701462, 0.9999853372573853],
+            [0.13333333333333333, -0.00436442531645298, 0.014555158093571663, -0.014501689001917839, -0.0014436427736654878, -0.004815912339836359, 0.0008729408727958798, 0.999987006187439],
+            [0.16666666666666666, 0.0059846979565918446, 0.01656184159219265, -0.021738169714808464, -0.0030011397320777178, -0.005970308091491461, 0.0013179857051, 0.9999768137931824],
+            [0.2, -0.005704227369278669, 0.01421407237648964, -0.023523179814219475, -0.0020245446357876062, -0.005227954592555761, 0.002022226108238101, 0.9999822378158569],
+            [0.23333333333333334, -0.012325357645750046, 0.013248473405838013, -0.015774045139551163, 0.0010444280924275517, -0.007732165977358818, 0.005077276844531298, 0.9999566674232483]
+        ],
+        "ate_mm": 0.802, "keyframe_switches": 0, "failures": 0, "mean_flow": 0.3209,
+    },
+    "relocalization": {
+        "errors_off": [0.0009, 0.0017, 0.0022, 0.0029, 0.3381, 0.3374, 0.3382],
+        "errors_on": [0.0009, 0.0017, 0.0022, 0.0029, 0.0012, 0.0007, 0.0028], "relocalizations": 1,
+    },
+    "slam_loop_closure": {"edges": "[(12, 3), (13, 2), (14, 1), (12, 2), (14, 2), (13, 3)]", "ate_before_cm": 2.03,
+                          "ate_after_cm": 0.19},
+    "photometric_window": {"candidates": 1024, "iterations": 7, "energy": 1639.7, "idepth_error": [0.0193, 0.0057],
+                           "pose_error_mm": 0.89},
+}
+EXAMPLE_T_ATOL, EXAMPLE_Q_ATOL = 1e-4, 1e-5  # track_synthetic's trajectory against JAX's
+EXAMPLE_RELOC_ATOL = 2e-3  # relocalization's position errors against JAX's printed ones
 
 
 def drift_grays(grays):
@@ -2132,6 +2198,214 @@ def phase_refine(seq, slam_seq, dev):
     return total
 
 
+def _profiled_part(label, fn, reps):
+    """ms a call (CUDA events, median of ``reps``), and one call under the
+    profiler: launches, host reads and the device's busy share."""
+    from visual_odometry_rs_tpu_torch.utils import profiling
+
+    ms = _time_ms(fn, reps=reps, warmup=1)
+    for _ in range(PROFILER_ATTEMPTS):
+        prof = profiling.profile_device(fn)
+        if prof.launches > 0:
+            break
+    print(f"  {label}: {ms:.3f} ms a call (CUDA events, median of {reps}); {prof.launches} launches, "
+          f"{prof.device_to_host_copies} host reads, device busy {100 * prof.busy_share:.2f}% of "
+          f"{prof.wall_ms:.1f} ms (profiler on)")
+    top = sorted(prof.host_op_calls.items(), key=lambda kv: -kv[1])[:8]
+    print("    host operators a call, most called first: " + ", ".join(f"{k} {v}" for k, v in top))
+    return dict(ms=ms, launches=prof.launches, reads=prof.device_to_host_copies, busy=prof.busy_share)
+
+
+def phase_affine(dev):
+    """Phase 11a: ``affine2d.align`` at 640x480 on the card."""
+    import numpy as np
+    import torch
+
+    from visual_odometry_rs_tpu_torch.dataset import synthetic
+    from visual_odometry_rs_tpu_torch.models import affine2d
+
+    img = synthetic.smooth_image(HEIGHT, WIDTH, seed=AFFINE_IMAGE_SEED)
+    template, affine_gt = affine2d.random_template(img, seed=AFFINE_TEMPLATE_SEED)
+    levels = affine2d.default_nb_levels(HEIGHT, WIDTH)
+    t_card, i_card = torch.from_numpy(template).to(dev), torch.from_numpy(img).to(dev)
+    affine2d.align(t_card, i_card, levels)  # the linear-algebra libraries' first use is slow
+    (a, failed_a), (b, failed_b) = affine2d.align(t_card, i_card, levels), affine2d.align(t_card, i_card, levels)
+    if failed_a or failed_b or not torch.equal(a, b):
+        raise AssertionError(f"align: failed {failed_a}/{failed_b}, or two runs on the card differ")
+    start = time.perf_counter()
+    cpu, failed_cpu = affine2d.align(torch.from_numpy(template), torch.from_numpy(img), levels)
+    cpu_ms = 1e3 * (time.perf_counter() - start)
+    card_cpu = float((a.cpu() - cpu).abs().max())
+    card_jax = float((a.cpu() - torch.tensor(JAX_AFFINE)).abs().max())
+    w = affine2d.warp_matrix(a).cpu().numpy()[:2]
+    lin, trans = float(np.abs(w[:, :2] - affine_gt[:, :2]).max()), float(np.abs(w[:, 2] - affine_gt[:, 2]).max())
+    print(f"align at {WIDTH}x{HEIGHT}, {levels} levels (level 0: {HEIGHT * WIDTH} pixels): card against CPU "
+          f"{card_cpu:.3e} (atol {AFFINE_CARD_ATOL}), against JAX {card_jax:.3e} (atol {AFFINE_JAX_ATOL}); the "
+          f"ground truth within {lin:.3e} (linear, atol {AFFINE_LINEAR_ATOL}) and {trans:.3e} px (translation, "
+          f"atol {AFFINE_TRANSLATION_ATOL}); two card runs bit-equal; the host CPU {cpu_ms:.1f} ms")
+    if failed_cpu or not (card_cpu <= AFFINE_CARD_ATOL and card_jax <= AFFINE_JAX_ATOL
+                          and lin <= AFFINE_LINEAR_ATOL and trans <= AFFINE_TRANSLATION_ATOL):
+        raise AssertionError("align: outside its tolerances")
+    return _profiled_part("align", lambda: affine2d.align(t_card, i_card, levels), AFFINE_REPS)
+
+
+def phase_ba(dev):
+    """Phase 11b: window BA at K=16, P=4096 on the card."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.eval import ate
+    from visual_odometry_rs_tpu_torch.math.pose import Pose
+    from visual_odometry_rs_tpu_torch.parallel import ba
+
+    def problem(device):
+        return ba.synthetic_problem(K=BA_K, P=BA_P, seed=BA_SEED, perturb=BA_PERTURB, noise_px=BA_NOISE_PX,
+                                    device=device)
+
+    prob, gt_poses, _ = problem(dev)
+    ba.solve(prob, max_iterations=1)  # the linear-algebra libraries' first use is slow
+    a, b = ba.solve(prob), ba.solve(prob)
+    for x, y in zip((a.poses.q, a.poses.t, a.points, a.energy), (b.poses.q, b.poses.t, b.points, b.energy)):
+        if not torch.equal(x, y):
+            raise AssertionError("BA solve: two runs on the card differ")
+    cpu_prob = problem(torch.device("cpu"))[0]
+    start = time.perf_counter()
+    cpu = ba.solve(cpu_prob)
+    cpu_ms = 1e3 * (time.perf_counter() - start)
+    e0 = float(ba._energy(prob, prob.poses, prob.points))
+    dt = float((a.poses.t.cpu() - cpu.poses.t).abs().max())
+    poses = [Pose(a.poses.q[k].cpu(), a.poses.t[k].cpu()) for k in range(BA_K)]
+    gt = [Pose(gt_poses.q[k].cpu(), gt_poses.t[k].cpu()) for k in range(BA_K)]
+    err = ate.ate_rmse(poses, gt, with_scale=True)
+    print(f"BA solve, K={BA_K} keyframes x P={BA_P} points = {BA_K * BA_P} observations ({BA_NOISE_PX} px noise): "
+          f"{int(a.nb_iter)} LM iterations (CPU {int(cpu.nb_iter)}, JAX {JAX_BA['nb_iter']}), energy {e0:.1f} -> "
+          f"{float(a.energy):.3f} (CPU {float(cpu.energy):.3f}, JAX {JAX_BA['energy']:.3f}); card against CPU "
+          f"|dt| {dt:.3e} m (atol {BA_CARD_ATOL}); ATE {err:.6e} m (JAX {JAX_BA['ate']:.6e}, bound 1.5x); two card "
+          f"runs bit-equal; the host CPU {cpu_ms:.1f} ms")
+    if not (dt <= BA_CARD_ATOL and float(a.energy) < 0.5 * e0 and err <= 1.5 * JAX_BA["ate"]):
+        raise AssertionError("BA solve: outside its tolerances")
+    row = _profiled_part("BA solve", lambda: ba.solve(prob), BA_REPS)
+    row["iters"] = int(a.nb_iter)
+    return row
+
+
+def _example(name, argv):
+    """An example's ``main(argv)`` with its output captured: (value, stdout, stderr)."""
+    import contextlib
+    import importlib
+    import io
+
+    main = importlib.import_module(f"visual_odometry_rs_tpu_torch.examples.{name}").main
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        value = main(argv)
+    return value, out.getvalue(), err.getvalue()
+
+
+def phase_examples(dev):
+    """Phase 11c: the 11 example programs through their ``main`` on the
+    card, each against its run on the CPU, and the four tracking examples
+    against the JAX package's (``JAX_EXAMPLES``); returns the solver
+    launches."""
+    import re
+    import tempfile
+
+    import numpy as np
+
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, residual
+    from visual_odometry_rs_tpu_torch.utils import profiling
+
+    attempts = [0]
+    real_attempt = tracker_mod.Tracker._try_relocalize
+
+    def counted_attempt(self, pyr):
+        attempts[0] += 1
+        return real_attempt(self, pyr)
+
+    total = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as root:
+        for name in EXAMPLES:
+            out_dir = name.startswith("candidates")  # the overlays go to a directory of their own
+            cpu = _example(name, ["--cpu"] + (["--out-dir", f"{root}/cpu_{name}"] if out_dir else []))
+            card_args = ["--out-dir", f"{root}/card_{name}"] if out_dir else []
+            lm_solve.lm_solve_level.launches = 0
+            residual.residual_reduce.launches = 0
+            attempts[0] = 0
+            tracker_mod.Tracker._try_relocalize = counted_attempt
+            try:
+                box = {}
+                prof = profiling.profile_device(lambda: box.setdefault("run", _example(name, card_args)))
+            finally:
+                tracker_mod.Tracker._try_relocalize = real_attempt
+            launches = lm_solve.lm_solve_level.launches
+            (value, out, err), (cpu_value, cpu_text, _) = box["run"], cpu
+            expected = {"track_synthetic": 5 * 7, "relocalization": 3 * (2 * 7 + attempts[0]),
+                        "slam_loop_closure": 3}.get(name, 0)
+            if launches != expected or residual.residual_reduce.launches != 0:
+                raise AssertionError(f"example {name}: {launches} lm_solve_level launches, expected {expected}; "
+                                     f"{residual.residual_reduce.launches} residual_reduce launches, expected 0")
+            if name == "track_synthetic":
+                ref = JAX_EXAMPLES[name]
+                traj = np.array([[float(x) for x in line.split()] for line in out.splitlines()])
+                jax_traj = np.array(ref["trajectory"])
+                dt, dq = np.abs(traj[:, 1:4] - jax_traj[:, 1:4]).max(), np.abs(traj[:, 4:] - jax_traj[:, 4:]).max()
+                ok = abs(value - cpu_value) <= EXAMPLE_ATE_RTOL * cpu_value and \
+                    abs(1e3 * value - ref["ate_mm"]) <= EXAMPLE_ATE_RTOL * ref["ate_mm"] and \
+                    dt <= EXAMPLE_T_ATOL and dq <= EXAMPLE_Q_ATOL and np.array_equal(traj[:, 0], jax_traj[:, 0])
+                detail = (f"ATE {1e3 * value:.3f} mm (CPU {1e3 * cpu_value:.3f}, JAX {ref['ate_mm']}), trajectory "
+                          f"within {dt:.2e} m and {dq:.2e} of JAX's")
+            elif name == "relocalization":
+                ref = JAX_EXAMPLES[name]
+                d = max(np.abs(np.array(value[0]) - ref["errors_off"]).max(),
+                        np.abs(np.array(value[1]) - ref["errors_on"]).max())
+                ok = value[2] == ref["relocalizations"] and value[1][-1] < 0.05 < value[0][-1] and \
+                    d <= EXAMPLE_RELOC_ATOL
+                detail = (f"relocalizations {value[2]} (JAX {ref['relocalizations']}), post-kidnap error "
+                          f"{value[1][-1]:.4f} m against {value[0][-1]:.4f}; errors within {d:.1e} m of JAX's")
+            elif name == "slam_loop_closure":
+                ref = JAX_EXAMPLES[name]
+                edges = re.search(r"verified loop edges: (.*)", out).group(1)
+                after = float(re.search(r"ATE after  loop closure: ([\d.]+) cm", out).group(1))
+                ok = value < 0.5 and edges == ref["edges"] and abs(after - ref["ate_after_cm"]) <= 0.05 and \
+                    edges == re.search(r"verified loop edges: (.*)", cpu_text).group(1)
+                detail = (f"ATE ratio {value:.3f} (CPU {cpu_value:.3f}), after {after:.2f} cm (JAX "
+                          f"{ref['ate_after_cm']:.2f}); verified edges {edges} as the CPU's and JAX's")
+            elif name == "photometric_window":
+                ref = JAX_EXAMPLES[name]
+                iters = int(re.search(r"LM iterations: (\d+)", out).group(1))
+                energy = float(re.search(r"final energy ([\d.]+)", out).group(1))
+                ok = value[1] < 0.5 * value[0] and abs(value[1] - cpu_value[1]) <= 1e-3 and \
+                    abs(iters - ref["iterations"]) <= 2 and abs(energy - ref["energy"]) <= 1e-3 * ref["energy"] and \
+                    abs(value[1] - ref["idepth_error"][1]) <= 1e-3 and abs(1e3 * value[2] - ref["pose_error_mm"]) <= 0.1
+                detail = (f"inverse-depth error {value[0]:.4f} -> {value[1]:.4f} (CPU -> {cpu_value[1]:.4f}, JAX -> "
+                          f"{ref['idepth_error'][1]}), {iters} LM iterations (JAX {ref['iterations']}), energy "
+                          f"{energy} (JAX {ref['energy']}), pose error {1e3 * value[2]:.2f} mm (JAX "
+                          f"{ref['pose_error_mm']})")
+            elif name == "optim_affine2d":
+                gt, computed, failed = value
+                ok = not failed and np.abs(computed[:, :2] - gt[:, :2]).max() <= AFFINE_LINEAR_ATOL and \
+                    np.abs(computed[:, 2] - gt[:, 2]).max() <= AFFINE_TRANSLATION_ATOL and \
+                    np.abs(computed - cpu_value[1]).max() <= AFFINE_CARD_ATOL
+                detail = f"warp within {np.abs(computed - gt).max():.3e} of the ground truth"
+            elif name.startswith("optim_"):
+                model = value.state.model.cpu().numpy()
+                ok = np.allclose(model, cpu_value.state.model.numpy(), atol=1e-5)
+                detail = f"{int(value.nb_iter)} iterations (CPU {int(cpu_value.nb_iter)}), model {model.tolist()}"
+            elif name.startswith("candidates"):
+                ok = value == cpu_value
+                detail = f"candidates {value} (CPU {cpu_value})"
+            else:
+                ok = out == cpu_text
+                detail = f"{len(out.splitlines())} lines as on the CPU"
+            if not ok:
+                raise AssertionError(f"example {name} on the card: {detail}\n{out[-1500:]}\n{err[-1500:]}")
+            total += launches
+            print(f"  example {name}: {detail}; {launches} lm_solve_level launches; {prof.wall_ms:.1f} ms, "
+                  f"{prof.launches} launches, {prof.device_to_host_copies} host reads, device busy "
+                  f"{100 * prof.busy_share:.2f}% (profiler on)")
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -2288,6 +2562,13 @@ def main() -> int:
     phase_window_solve(seq, dev)
     solve_launches += phase_refine(seq, slam_seq, dev)
     print(f"phase 10 (the photometric window): {time.perf_counter() - ten:.1f} s")
+
+    # phase 11: the rest of the single-device surface
+    eleven = time.perf_counter()
+    phase_affine(dev)
+    phase_ba(dev)
+    solve_launches += phase_examples(dev)
+    print(f"phase 11 (affine alignment, window BA, the examples): {time.perf_counter() - eleven:.1f} s")
 
     def row(rows):  # level 0 as the tracker buckets it
         return next(r for r in rows if r["level"] == 0 and r["shape"] == "bucket")

@@ -2,7 +2,7 @@
 """The JAX package's ATE on ``chip_smoke.py``'s streaming sequences (CPU).
 
     JAX_PLATFORMS=cpu python3 chip_smoke_reference.py \
-        [plain|huber+brightness|dso_fixed|relocalize|slam|refine|refine_chunked|slam_refine ...]
+        [plain|huber+brightness|dso_fixed|relocalize|slam|refine|refine_chunked|slam_refine|affine|ba ...]
 
 ``chip_smoke.py`` holds the port's ATE on the card within 1.5x of these
 numbers (``JAX_ATE`` for phase 4, ``JAX_ATE_OPTIONS`` for phase 7).  Each
@@ -14,7 +14,12 @@ keyframe, loop-edge and map-point counts and the ATE (``JAX_SLAM``).  ``refine``
 ``refine_chunked`` run the JAX package's ``vors_refine`` (sliding and chunked, its default
 flags) on phase 10's files, phase 4's 41 frames with a seeded drift on their ground truth, and
 print the refined ATE (``JAX_REFINE``); ``slam_refine`` runs ``vors_slam --refine-window 6``
-on phase 9's files (``JAX_SLAM_REFINE``).  A run holds a few GiB of host memory; the script
+on phase 9's files (``JAX_SLAM_REFINE``).  ``affine`` runs the JAX package's ``affine2d.align`` on
+phase 11a's 640x480 image and template and prints its parameters (``JAX_AFFINE``); ``ba`` runs its
+``parallel/ba.solve`` on phase 11b's window (``tests/test_ba.py::make_problem`` at K=16, P=4096) and
+prints the energy, the LM iterations and the ATE with scale (``JAX_BA``); ``examples`` runs the
+JAX package's four tracking example programs (``track_synthetic``, ``relocalization``,
+``slam_loop_closure``, ``photometric_window``) and prints the numbers they print (``JAX_EXAMPLES``).  A run holds a few GiB of host memory; the script
 stops itself if it passes ``MEMORY_LIMIT_GIB``.
 """
 
@@ -164,10 +169,107 @@ def jax_refine(mode) -> dict:
             "ate": float(ate.ate_rmse([f.pose for f in frames], seq.poses[1:]))}
 
 
+def jax_affine() -> list:
+    """The JAX package's ``align`` on phase 11a's image and template."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from visual_odometry_rs_tpu.models import affine2d
+
+    from visual_odometry_rs_tpu_torch.dataset import synthetic
+
+    img = synthetic.smooth_image(smoke.HEIGHT, smoke.WIDTH, seed=smoke.AFFINE_IMAGE_SEED)
+    template, _ = affine2d.random_template(img, seed=smoke.AFFINE_TEMPLATE_SEED)
+    params, failed = affine2d.align(jnp.asarray(template), jnp.asarray(img),
+                                    affine2d.default_nb_levels(smoke.HEIGHT, smoke.WIDTH))
+    assert not bool(failed)
+    return [float(v) for v in params]
+
+
+def jax_ba() -> dict:
+    """The JAX package's ``solve`` on phase 11b's window."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+    from visual_odometry_rs_tpu.eval import ate
+    from visual_odometry_rs_tpu.math.pose import Pose
+    from visual_odometry_rs_tpu.parallel import ba
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_ba import make_problem
+
+    problem, gt_poses, _ = make_problem(K=smoke.BA_K, P=smoke.BA_P, seed=smoke.BA_SEED, perturb=smoke.BA_PERTURB,
+                                        noise_px=smoke.BA_NOISE_PX)
+    res = ba.solve(problem)
+    poses = [Pose(np.asarray(res.poses.q[k]), np.asarray(res.poses.t[k])) for k in range(smoke.BA_K)]
+    gt = [Pose(np.asarray(gt_poses.q[k]), np.asarray(gt_poses.t[k])) for k in range(smoke.BA_K)]
+    return {"energy": float(res.energy), "nb_iter": int(res.nb_iter),
+            "ate": float(ate.ate_rmse(poses, gt, with_scale=True))}
+
+
+def jax_examples() -> dict:
+    """The numbers that the JAX package's four tracking examples print, run
+    as programs."""
+    import contextlib
+    import io
+    import re
+    import runpy
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    root = os.path.dirname(os.path.abspath(__file__))
+    printed = {}
+    for name in ("track_synthetic", "relocalization", "slam_loop_closure", "photometric_window"):
+        out, err = io.StringIO(), io.StringIO()
+        saved = sys.argv
+        sys.argv = [name]
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                runpy.run_path(os.path.join(root, "examples", f"{name}.py"), run_name="__main__")
+        finally:
+            sys.argv = saved
+        printed[name] = out.getvalue() + err.getvalue()
+    track, reloc = printed["track_synthetic"], printed["relocalization"]
+    slam, window = printed["slam_loop_closure"], printed["photometric_window"]
+    summary = json.loads(re.search(r"(\{.*\})", track.split("ATE RMSE")[1]).group(1))
+    rows = re.findall(r"^\s+(\d+)\s+([\d.]+)\s+([\d.]+)", reloc, re.M)
+    return {
+        "track_synthetic": {
+            "trajectory": [[float(x) for x in line.split()] for line in track.splitlines()[:7]],
+            "ate_mm": float(re.search(r"ATE RMSE: ([\d.]+) mm", track).group(1)),
+            "keyframe_switches": summary["keyframe_switches"], "failures": summary["failures"],
+            "mean_flow": summary["mean_flow"],
+        },
+        "relocalization": {
+            "errors_off": [float(r[1]) for r in rows], "errors_on": [float(r[2]) for r in rows],
+            "relocalizations": int(re.search(r"relocalizations fired: (\d+)", reloc).group(1)),
+        },
+        "slam_loop_closure": {
+            "edges": re.search(r"verified loop edges: (.*)", slam).group(1),
+            "ate_before_cm": float(re.search(r"ATE before loop closure: ([\d.]+) cm", slam).group(1)),
+            "ate_after_cm": float(re.search(r"ATE after  loop closure: ([\d.]+) cm", slam).group(1)),
+        },
+        "photometric_window": {
+            "candidates": int(re.search(r"window of \d+ frames, (\d+) candidates", window).group(1)),
+            "iterations": int(re.search(r"LM iterations: (\d+)", window).group(1)),
+            "energy": float(re.search(r"final energy ([\d.]+)", window).group(1)),
+            "idepth_error": [float(x) for x in re.search(r"\|error\|: ([\d.]+) -> ([\d.]+)", window).groups()],
+            "pose_error_mm": float(re.search(r"\|t error\|: ([\d.]+) mm", window).group(1)),
+        },
+    }
+
+
 def main(argv) -> int:
     threading.Thread(target=_watch_memory, daemon=True).start()
-    for name in argv or [*RUNS, "slam", "refine", "refine_chunked", "slam_refine"]:
+    for name in argv or [*RUNS, "slam", "refine", "refine_chunked", "slam_refine", "affine", "ba", "examples"]:
         start = time.time()
+        if name in ("affine", "ba", "examples"):
+            value = {"affine": jax_affine, "ba": jax_ba, "examples": jax_examples}[name]()
+            print(json.dumps({"run": name, f"jax_{name}": value, "seconds": round(time.time() - start, 1)}), flush=True)
+            continue
         if name in ("slam", "slam_refine"):
             value = jax_slam(smoke.REFINE_WINDOW if name == "slam_refine" else 0)
             print(json.dumps({"run": name, "jax_slam": value, "seconds": round(time.time() - start, 1)}), flush=True)

@@ -1,5 +1,6 @@
-"""The port runs where JAX is absent: every module imports, and the CLI
-answers ``--help``, with ``jax`` and the JAX package blocked."""
+"""The port runs where JAX is absent: every module imports, and the CLIs
+and the example programs answer ``--help``, with ``jax`` and the JAX
+package blocked."""
 
 import pathlib
 import subprocess
@@ -20,7 +21,15 @@ for cli in (vors_track, vors_batch, vors_eval, vors_slam, vors_refine):
         cli.main(["--help"])
     except SystemExit as e:
         assert e.code == 0, e.code
+for name in EXAMPLES:
+    try:
+        importlib.import_module("visual_odometry_rs_tpu_torch.examples." + name).main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
 """
+EXAMPLES = ("optim_rosenbrock", "optim_regression_1d", "optim_affine2d", "candidates_coarse_to_fine", "candidates_dso",
+            "dataset_tum_read_associations", "dataset_tum_read_trajectory", "track_synthetic", "relocalization",
+            "slam_loop_closure", "photometric_window")
 
 
 def _modules():
@@ -37,10 +46,12 @@ def test_port_imports_and_cli_help_without_jax():
     assert "visual_odometry_rs_tpu_torch.parallel.batch" in modules
     for name in ("models.relocalize", "core.candidates.dso", "native", "utils.checkpoint", "utils.metrics",
                  "cli.vors_eval", "parallel.pose_graph", "models.loop_closure", "utils.pointcloud", "cli.vors_slam",
-                 "models.photometric_ba", "models.sliding_window", "cli.vors_refine"):
+                 "models.photometric_ba", "models.sliding_window", "cli.vors_refine", "models.affine2d", "parallel.ba",
+                 "utils.view", "utils.colormap", "utils.helper", "utils.image_interop", "examples",
+                 *(f"examples.{name}" for name in EXAMPLES)):
         assert f"visual_odometry_rs_tpu_torch.{name}" in modules
     proc = subprocess.run(
-        [sys.executable, "-c", _GUARD, *modules],
+        [sys.executable, "-c", f"EXAMPLES = {EXAMPLES!r}\n" + _GUARD, *modules],
         cwd=REPO, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
@@ -62,6 +73,7 @@ def test_port_imports_and_cli_help_without_jax():
     for flag in ("--chunk", "--metrics", "--delta", "--max-dt"):
         assert flag in proc.stdout, flag
     assert "==SUPPRESS==" not in proc.stdout
+    assert proc.stdout.count("--cpu") >= len(EXAMPLES) + 1  # every example's help, and vors_refine's
 
 
 def test_port_sources_name_no_jax():

@@ -656,3 +656,72 @@ def test_sliding_window_on_the_card(cuda_device):
         for p, q, c in zip(poses, poses_b, poses_c):
             assert torch.equal(p.t, q.t) and torch.equal(p.q, q.q)
             np.testing.assert_allclose(p.t.numpy(), c.t.numpy(), atol=5e-3)
+
+
+def test_integer_gradients_on_the_card(cuda_device):
+    """The reference's integer gradients (int16, uint16) on the card equal the CPU's."""
+    from visual_odometry_rs_tpu_torch.ops import gradient
+
+    img = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (37, 53), dtype=np.uint8))
+    pyr_c, pyr_g = pyramid.mean_pyramid(4, img), pyramid.mean_pyramid(4, img.to(cuda_device))
+    out_c = [*gradient.centered(img), gradient.squared_norm(*gradient.centered(img)),
+             *(g for pair in gradient.gradients_xy(pyr_c) for g in pair), *gradient.gradients_squared_norm(pyr_c)]
+    out_g = [*gradient.centered(pyr_g[0]), gradient.squared_norm(*gradient.centered(pyr_g[0])),
+             *(g for pair in gradient.gradients_xy(pyr_g) for g in pair), *gradient.gradients_squared_norm(pyr_g)]
+    for c, g in zip(out_c, out_g):
+        assert g.device.type == "cuda" and g.dtype == c.dtype
+        assert torch.equal(g.cpu(), c)
+
+
+def test_affine_align_on_the_card(cuda_device):
+    """``affine2d.align`` at 128x160 on the card: two runs bit-equal, the
+    CPU's parameters within ``atol=1e-4``, the ground truth within
+    ``tests/test_affine2d.py``'s bounds."""
+    from visual_odometry_rs_tpu_torch.models import affine2d
+
+    img = synthetic.smooth_image(128, 160, seed=1)
+    template, affine_gt = affine2d.random_template(img, seed=2)
+    n = affine2d.default_nb_levels(*img.shape)
+    t_g, i_g = torch.from_numpy(template).to(cuda_device), torch.from_numpy(img).to(cuda_device)
+    (a, failed_a), (b, failed_b) = affine2d.align(t_g, i_g, n), affine2d.align(t_g, i_g, n)
+    assert a.device.type == "cuda" and not failed_a and not failed_b and torch.equal(a, b)
+    cpu, _ = affine2d.align(torch.from_numpy(template), torch.from_numpy(img), n)
+    np.testing.assert_allclose(a.cpu().numpy(), cpu.numpy(), atol=1e-4)
+    w = affine2d.warp_matrix(a).cpu().numpy()[:2]
+    np.testing.assert_allclose(w[:, :2], affine_gt[:, :2], atol=5e-3)
+    np.testing.assert_allclose(w[:, 2], affine_gt[:, 2], atol=0.5)
+
+
+def test_ba_solve_on_the_card(cuda_device):
+    """Window BA (K=16, P=256) on the card: two runs bit-equal, the CPU's
+    poses within ``atol=1e-5`` m.  LM iterations within 2: without noise the
+    stop rule ``d_energy < 1e-6 (E + 1)`` is met on f32 noise of an energy
+    near 2.5e-7 px², so the order of summation decides it (ROADMAP C2;
+    measured 4 on the card against 6 on the CPU)."""
+    from visual_odometry_rs_tpu_torch.parallel import ba
+
+    problem, _, _ = ba.synthetic_problem(K=16, P=256, seed=5, perturb=0.01, device=cuda_device)
+    a, b = ba.solve(problem), ba.solve(problem)
+    assert a.points.device.type == "cuda"
+    for x, y in zip((a.poses.q, a.poses.t, a.points, a.energy), (b.poses.q, b.poses.t, b.points, b.energy)):
+        assert torch.equal(x, y)
+    cpu = ba.solve(ba.synthetic_problem(K=16, P=256, seed=5, perturb=0.01)[0])
+    assert abs(int(a.nb_iter) - int(cpu.nb_iter)) <= 2
+    np.testing.assert_allclose(a.poses.t.cpu().numpy(), cpu.poses.t.numpy(), atol=1e-5)
+    np.testing.assert_allclose(a.points.cpu().numpy(), cpu.points.numpy(), atol=1e-4)
+
+
+def test_track_synthetic_example_on_the_card(cuda_device):
+    """The ``track_synthetic`` example on the card: one solver launch a
+    level and frame (5 levels x 7 frames), the CPU's ATE within 5%."""
+    import contextlib
+    import io
+
+    from visual_odometry_rs_tpu_torch.examples import track_synthetic
+
+    before = lm_solve.lm_solve_level.launches
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        err = track_synthetic.main([])
+        err_cpu = track_synthetic.main(["--cpu"])
+    assert lm_solve.lm_solve_level.launches - before == 5 * 7
+    assert abs(err - err_cpu) <= 0.05 * err_cpu

@@ -1,9 +1,11 @@
 """Pinhole camera: intrinsics, projection, multi-resolution scaling.
 
 The port of ``visual_odometry_rs_tpu/core/camera.py``: ``Intrinsics``
-(principal point, focal, skew), ``project`` / ``back_project``
-(camera.rs:126-140), the ±0.5 principal-point shift of each halving
-(camera.rs:115-123) and the tracker's ``warp``.
+(principal point, focal, skew) and their ``matrix``, ``project`` /
+``back_project`` (camera.rs:126-140), the ±0.5 principal-point shift of
+each halving (camera.rs:115-123), the ``Camera`` = intrinsics + extrinsics
+pairing with its world↔camera projections (camera.rs:18-77) and the
+tracker's ``warp``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,14 @@ class Intrinsics(NamedTuple):
         return torch.stack(tuple(self))
 
 
+def matrix(k: Intrinsics) -> torch.Tensor:
+    """3x3 calibration matrix (camera.rs:96-102)."""
+    z = torch.zeros_like(k.fx)
+    o = torch.ones_like(k.fx)
+    m = torch.stack([k.fx, k.skew, k.cx, z, k.fy, k.cy, z, z, o], dim=-1)
+    return m.reshape(*k.fx.shape, 3, 3)
+
+
 def half_res(k: Intrinsics) -> Intrinsics:
     """Intrinsics of the half-resolution camera (camera.rs:115-123): (0,0)
     is the center of the first pixel, hence the ±0.5 shift."""
@@ -72,6 +82,39 @@ def back_project(k: Intrinsics, point: torch.Tensor, depth: torch.Tensor) -> tor
     y = (point[..., 1] - k.cy) * z / k.fy
     x = ((point[..., 0] - k.cx) * z - k.skew * y) / k.fx
     return torch.stack([x, y, z], dim=-1)
+
+
+class Camera(NamedTuple):
+    """Intrinsics + extrinsics; the extrinsics are the camera's pose,
+    camera-to-world (camera.rs:12-23)."""
+
+    intrinsics: Intrinsics
+    extrinsics: Pose
+
+
+def world_to_camera(extrinsics: Pose, point: torch.Tensor) -> torch.Tensor:
+    """World → camera coordinates: ``R^-1 (p - t)`` (camera.rs:70-72)."""
+    return _pose.quat_rotate(_pose.quat_conj(extrinsics.q), point - extrinsics.t)
+
+
+def camera_to_world(extrinsics: Pose, point: torch.Tensor) -> torch.Tensor:
+    """Camera → world coordinates: ``pose * p`` (camera.rs:75-77)."""
+    return _pose.apply(extrinsics, point)
+
+
+def camera_project(cam: Camera, point: torch.Tensor) -> torch.Tensor:
+    """World point → homogeneous pixel (camera.rs:36-39)."""
+    return project(cam.intrinsics, world_to_camera(cam.extrinsics, point))
+
+
+def camera_back_project(cam: Camera, point: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixel + depth → world point (camera.rs:43-45)."""
+    return camera_to_world(cam.extrinsics, back_project(cam.intrinsics, point, depth))
+
+
+def camera_multi_res(cam: Camera, n: int) -> List[Camera]:
+    """The camera at n resolutions: intrinsics halved, extrinsics kept (camera.rs:49-57)."""
+    return [Camera(k, cam.extrinsics) for k in multi_res(cam.intrinsics, n)]
 
 
 def warp(model: Pose, x: torch.Tensor, y: torch.Tensor, idepth: torch.Tensor, k: Intrinsics):

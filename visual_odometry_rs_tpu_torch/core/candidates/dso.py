@@ -257,6 +257,19 @@ def jax_randint_256(shape: Tuple[int, ...], seed: int = 0) -> np.ndarray:
     return ((a ^ b) % np.uint32(256)).astype(np.int32).reshape(shape)
 
 
+def jax_uniform(shape: Tuple[int, ...], seed: int, minval: float, maxval: float) -> np.ndarray:
+    """``jax.random.uniform(PRNGKey(seed), shape, float32, minval, maxval)``
+    in numpy: the 32 bits of an element are Threefry of its flat index as a
+    64-bit counter, the two words xor-ed (no split); the top 23 bits make a
+    float in [1, 2), minus 1, scaled to [minval, maxval)."""
+    with np.errstate(over="ignore"):
+        idx = np.arange(math.prod(shape), dtype=np.uint64)
+        a, b = _threefry2x32((0, seed), (idx >> np.uint64(32)).astype(np.uint32), idx.astype(np.uint32))
+    unit = (((a ^ b) >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return np.maximum(lo, unit * (hi - lo) + lo).reshape(shape)
+
+
 @lru_cache(maxsize=8)
 def _seeded_plane(shape: Tuple[int, ...], seed: int, device: str) -> torch.Tensor:
     return torch.from_numpy(jax_randint_256(shape, seed)).to(device)

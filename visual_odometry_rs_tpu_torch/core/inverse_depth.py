@@ -1,6 +1,6 @@
 """Inverse-depth maps with validity states, and the two 2x2 fusions.
 
-The port of ``from_depth``, ``masked``, ``fuse_dso_mean``,
+The port of ``from_depth``, ``to_depth``, ``masked``, ``fuse_dso_mean``,
 ``fuse_statistically_similar`` and ``pyramid`` of
 ``visual_odometry_rs_tpu/core/inverse_depth.py`` (inverse_depth.rs:24-152).
 The reference's enum {Unknown, Discarded, WithVariance(ρ, σ²)} is three
@@ -45,6 +45,17 @@ def from_depth(scale: float, depth: torch.Tensor, variance: float) -> InverseDep
     idepth = torch.where(known, torch.full_like(depth_f, scale) / torch.clamp(depth_f, min=1.0), zero)
     var = torch.where(known, torch.full_like(depth_f, variance), zero)
     return InverseDepthMap(idepth, var, _state(known))
+
+
+def to_depth(scale: float, m: InverseDepthMap) -> torch.Tensor:
+    """Inverse depth → uint16 depth, ``round(scale / idepth)`` half to even;
+    Unknown and Discarded encode as 0 (inverse_depth.rs:37-42).  Values
+    past the u16 range saturate, as XLA's conversion does."""
+    known = m.known
+    idepth = torch.where(known, m.idepth, torch.ones_like(m.idepth))
+    depth = torch.round(torch.full_like(idepth, scale) / idepth)
+    depth = torch.where(known, depth, torch.zeros_like(depth))
+    return torch.clamp(depth, 0.0, 65535.0).to(torch.int32).to(torch.uint16)
 
 
 def masked(m: InverseDepthMap, mask: torch.Tensor) -> InverseDepthMap:

@@ -132,3 +132,18 @@ def generate_sequence(
         timestamps=np.arange(nb_frames, dtype=np.float64) / 30.0,
         intrinsics=intrinsics,
     )
+
+
+def smooth_image(h: int, w: int, seed: int = 0) -> np.ndarray:
+    """A smooth u8 test image, a mixture of 8 low-frequency sinusoids: the
+    JAX package's ``tests/test_affine2d.py::smooth_image``, the same draws."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.zeros((h, w))
+    for _ in range(8):
+        fx, fy = rng.uniform(0.5, 3.0, 2)
+        phase = rng.uniform(0, 2 * np.pi)
+        amp = rng.uniform(0.3, 1.0)
+        img += amp * np.sin(2 * np.pi * (fx * xx / w + fy * yy / h) + phase)
+    img = (img - img.min()) / (img.max() - img.min())
+    return (img * 255).astype(np.uint8)

@@ -37,6 +37,26 @@ PRESETS = {
 NATIVE_WIDTH, NATIVE_HEIGHT = 640, 480
 
 
+def _preset(camera_id: str, device) -> Intrinsics:
+    return Intrinsics.make(*PRESETS[camera_id], 0.0, device=device)
+
+
+def intrinsics_fr1(device="cpu") -> Intrinsics:
+    return _preset("fr1", device)
+
+
+def intrinsics_fr2(device="cpu") -> Intrinsics:
+    return _preset("fr2", device)
+
+
+def intrinsics_fr3(device="cpu") -> Intrinsics:
+    return _preset("fr3", device)
+
+
+def intrinsics_icl_nuim(device="cpu") -> Intrinsics:
+    return _preset("icl", device)
+
+
 def scaled_intrinsics(camera_id: str, height: int, width: int, device="cpu") -> Intrinsics:
     """Preset intrinsics rescaled to another image size: focal lengths
     scale linearly, the principal point as ``c' = (c + 0.5) * s - 0.5``
@@ -204,16 +224,21 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """Write a (H, W) uint8 or uint16 array as an 8- or 16-bit grayscale PNG
-    (no interlace, filter 0 on every row, zlib's default compression), with
-    the standard library only."""
+    """Write a (H, W) uint8 or uint16 array as an 8- or 16-bit grayscale PNG,
+    or a (H, W, 3) uint8 array as an 8-bit RGB PNG (colour type 2); no
+    interlace, filter 0 on every row, zlib's default compression, with the
+    standard library only."""
     image = np.asarray(image)
-    if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
-        raise ValueError(f"write_png takes a (H, W) uint8 or uint16 array, got {image.dtype} {image.shape}")
-    h, w = image.shape
-    rows = np.zeros((h, 1 + w * image.itemsize), np.uint8)  # a filter byte (0) per row
+    rgb = image.ndim == 3 and image.shape[-1] == 3 and image.dtype == np.uint8
+    if not rgb and (image.ndim != 2 or image.dtype not in (np.uint8, np.uint16)):
+        raise ValueError(
+            f"write_png takes a (H, W) uint8 or uint16 or a (H, W, 3) uint8 array, got {image.dtype} {image.shape}"
+        )
+    h, w = image.shape[:2]
+    row_bytes = w * image.itemsize * (3 if rgb else 1)
+    rows = np.zeros((h, 1 + row_bytes), np.uint8)  # a filter byte (0) per row
     rows[:, 1:] = image.astype(">u2" if image.dtype == np.uint16 else np.uint8).view(np.uint8).reshape(h, -1)
-    header = struct.pack(">IIBBBBB", w, h, 8 * image.itemsize, 0, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, 8 * image.itemsize, 2 if rgb else 0, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(b"\x89PNG\r\n\x1a\n")
         f.write(_png_chunk(b"IHDR", header))

@@ -20,6 +20,10 @@ sliding window's state (the keyframe, its pose and refined inverse depths,
 the members' images and models, the prior H and its anchors, the frame ids
 and counters) between a JAX ``SlidingWindow``/``BatchedSlidingWindow`` read
 into numpy and the port's windows, either way.
+
+The geometric BA's ``BAProblem``/``BAResult`` and affine alignment's
+``LevelData`` convert the same way (``ba_problem_from_numpy``,
+``ba_result_to_numpy``, ``affine_level_from_numpy`` and their twins).
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ import torch
 
 from .core.camera import Intrinsics
 from .math.pose import Pose
+from .models.affine2d import LevelData
 from .models.photometric_ba import Window, WindowResult
 from .models.tracker import KeyframeData, LevelObs, map_keyframe
+from .parallel.ba import BAProblem, BAResult
 from .parallel.batch import RelocRing, TrackState
 from .utils.types import to_numpy
 
@@ -169,6 +175,54 @@ def window_result_from_numpy(res, device="cpu") -> WindowResult:
 
 def window_result_to_numpy(res: WindowResult) -> WindowResult:
     return WindowResult(*(pose_to_numpy(x) if isinstance(x, Pose) else to_numpy(x) for x in res))
+
+
+def _i64(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, np.int64), device=device)
+
+
+def ba_problem_from_numpy(problem, device="cpu") -> BAProblem:
+    """A JAX ``BAProblem`` of numpy leaves → the port's (indices as int64)."""
+    return BAProblem(
+        poses=pose_from_numpy(problem.poses, device), points=_f32(problem.points, device),
+        obs_kf=_i64(problem.obs_kf, device), obs_pt=_i64(problem.obs_pt, device),
+        obs_uv=_f32(problem.obs_uv, device), obs_mask=torch.as_tensor(np.array(problem.obs_mask, bool), device=device),
+        intrinsics=intrinsics_from_numpy(problem.intrinsics, device),
+    )
+
+
+def ba_problem_to_numpy(problem: BAProblem) -> BAProblem:
+    """The port's problem as numpy leaves (indices as int32, as the JAX package's)."""
+    return BAProblem(
+        poses=pose_to_numpy(problem.poses), points=to_numpy(problem.points),
+        obs_kf=to_numpy(problem.obs_kf).astype(np.int32), obs_pt=to_numpy(problem.obs_pt).astype(np.int32),
+        obs_uv=to_numpy(problem.obs_uv), obs_mask=to_numpy(problem.obs_mask),
+        intrinsics=Intrinsics(*(to_numpy(v) for v in problem.intrinsics)),
+    )
+
+
+def ba_result_from_numpy(res, device="cpu") -> BAResult:
+    return BAResult(
+        poses=pose_from_numpy(res.poses, device), points=_f32(res.points, device), energy=_f32(res.energy, device),
+        nb_iter=torch.as_tensor(np.array(res.nb_iter, np.int32), device=device),
+    )
+
+
+def ba_result_to_numpy(res: BAResult) -> BAResult:
+    return BAResult(*(pose_to_numpy(x) if isinstance(x, Pose) else to_numpy(x) for x in res))
+
+
+def affine_level_from_numpy(level, device="cpu") -> LevelData:
+    """A JAX affine ``LevelData`` of numpy leaves → the port's."""
+    return LevelData(
+        template_vals=_f32(level.template_vals, device), xs=_f32(level.xs, device), ys=_f32(level.ys, device),
+        jacobians=_f32(level.jacobians, device),
+        image=torch.as_tensor(np.array(level.image, np.uint8), device=device),
+    )
+
+
+def affine_level_to_numpy(level: LevelData) -> LevelData:
+    return LevelData(*(to_numpy(x) for x in level))
 
 
 _WINDOW_HOST = ("frame_ids", "keyframe_switches", "_next_id")

@@ -106,3 +106,21 @@ def renormalize_first_order(p: Pose) -> Pose:
     after every inverse-compositional update (lm_optimizer.rs:205-209)."""
     sq_norm = torch.sum(p.q * p.q, dim=-1, keepdim=True)
     return Pose(0.5 * (3.0 - sq_norm) * p.q, p.t)
+
+
+def matrix(p: Pose) -> torch.Tensor:
+    """Pose → 4x4 homogeneous matrix (…,4,4)."""
+    top = torch.cat([rotation_matrix(p.q), p.t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=p.t.dtype, device=p.t.device)
+    return torch.cat([top, bottom.expand(*p.t.shape[:-1], 1, 4)], dim=-2)
+
+
+def from_euler_angles(roll, pitch, yaw) -> torch.Tensor:
+    """Quaternion from extrinsic x-y-z Euler angles, nalgebra's convention
+    ``R = Rz(yaw) Ry(pitch) Rx(roll)`` (so3.rs:146-148)."""
+    hr, hp, hy = (0.5 * torch.as_tensor(a, dtype=Float) for a in (roll, pitch, yaw))
+    zr, zp, zy = torch.zeros_like(hr), torch.zeros_like(hp), torch.zeros_like(hy)
+    qx = torch.stack([torch.cos(hr), torch.sin(hr), zr, zr], -1)
+    qy = torch.stack([torch.cos(hp), zp, torch.sin(hp), zp], -1)
+    qz = torch.stack([torch.cos(hy), zy, zy, torch.sin(hy)], -1)
+    return quat_mul(qz, quat_mul(qy, qx))

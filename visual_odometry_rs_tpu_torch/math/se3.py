@@ -1,4 +1,5 @@
-"""se3 / SE3: ``exp`` (twist → Pose) and ``log`` (Pose → twist) on tensors.
+"""se3 / SE3: ``hat``, ``vee``, ``exp`` (twist → Pose) and ``log`` (Pose →
+twist) on tensors.
 
 The port of ``visual_odometry_rs_tpu/math/se3.py``.  Twists are
 ``xi = [v, w]``: linear velocity first, angular velocity second
@@ -27,6 +28,28 @@ def _eye3(batch_shape, like: torch.Tensor) -> torch.Tensor:
 
 def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.sum(m * v[..., None, :], dim=-1)
+
+
+def linear_velocity(xi: torch.Tensor) -> torch.Tensor:
+    return xi[..., 0:3]
+
+
+def angular_velocity(xi: torch.Tensor) -> torch.Tensor:
+    return xi[..., 3:6]
+
+
+def hat(xi: torch.Tensor) -> torch.Tensor:
+    """Twist (…,6) → se3 element (…,4,4) (se3.rs:45-55)."""
+    top = torch.cat([so3.hat(angular_velocity(xi)), linear_velocity(xi)[..., :, None]], dim=-1)
+    bottom = torch.zeros((*xi.shape[:-1], 1, 4), dtype=xi.dtype, device=xi.device)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def vee(mat: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``hat``, with no skew-symmetry check (se3.rs:59-61)."""
+    return torch.stack(
+        [mat[..., 0, 3], mat[..., 1, 3], mat[..., 2, 3], mat[..., 2, 1], mat[..., 0, 2], mat[..., 1, 0]], dim=-1
+    )
 
 
 def adjoint(p: Pose) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""so3 / SO3: ``hat``, ``hat_2``, ``exp`` and ``log`` on tensors.
+"""so3 / SO3: ``hat``, ``hat_2``, ``vee``, ``exp`` and ``log`` on tensors.
 
 The port of ``visual_odometry_rs_tpu/math/so3.py``, with the reference's
 Taylor branches below ``theta^2 < (1e-2)^2`` (so3.rs:19-20).  Both branches
@@ -36,6 +36,11 @@ def hat_2(w: torch.Tensor) -> torch.Tensor:
         [-w22 - w33, w12, w13, w12, -w11 - w33, w23, w13, w23, -w11 - w22], dim=-1
     )
     return m.reshape(*w.shape[:-1], 3, 3)
+
+
+def vee(mat: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``hat``, with no skew-symmetry check (so3.rs:54-56)."""
+    return torch.stack([mat[..., 2, 1], mat[..., 0, 2], mat[..., 1, 0]], dim=-1)
 
 
 def exp(w: torch.Tensor) -> torch.Tensor:
