@@ -142,6 +142,29 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    one a level per relocalization attempt, ``slam_loop_closure`` one a
    level for all its pairs (3), the others none.
 
+12. The multi-GPU layer (``parallel/mesh.py``, ``collectives.py``,
+   ``sharded.py`` and the sharded solves), on the one card.  (a) A world of
+   one rank on NCCL in this process, which runs every sharded path with
+   n = 1: the point-sharded level solve at 640x480, level 0 as the tracker
+   buckets it, bit-equal to the Python LM loop (``solve_level_reference``,
+   the same ``residual_reduce`` kernel) and within phase 2's tolerance of
+   ``lm_solve_level``; BA at K=16 x P=4096 with ``psum`` and ``ring``, the
+   window at 6 x 2048 and the 320-node sparse pose graph, each bit-equal
+   to its single-device solve; ms a call of each against it.  (b) Two
+   ranks on the card over gloo (spawned processes; gloo's collectives go
+   through host copies): each rank launches ``residual_reduce`` on its
+   half of the level, the kernel within phase 1's tolerance of
+   ``residual_reduce_reference`` on that half, the pose within phase 2's of
+   the unsharded loop, the same on both ranks; the rings against the
+   fixed-order sum; BA (both assemblies), the window and the pose graph
+   within their CPU tests' tolerances of the single-device solves.  (c)
+   Lanes over a mesh of the card twice (two threads): 8 of phase 6's lanes
+   through ``batched_track_sequence(mesh=)`` and ``make_sharded_step``,
+   bit-equal per lane to the run without a mesh, 6 ``lm_solve_level``
+   launches a frame on each half; two windows through
+   ``solve_window_batched(mesh=)`` within the sharded window's tolerances
+   of the batch (the card's sums block by the lanes of a launch).
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that lists the kernels with
 their launches, errors, times and bounds.
@@ -317,6 +340,18 @@ JAX_EXAMPLES = {
 }
 EXAMPLE_T_ATOL, EXAMPLE_Q_ATOL = 1e-4, 1e-5  # track_synthetic's trajectory against JAX's
 EXAMPLE_RELOC_ATOL = 2e-3  # relocalization's position errors against JAX's printed ones
+# phase 12: the multi-GPU layer on one card
+SHARD_RANKS = 2  # gloo ranks spawned on the card
+SHARD_REPS = 5  # timed calls of each sharded solve
+PROFILE_TOP = 10  # events of a phase-12 profile printed, by time
+SHARD_LANES, SHARD_FRAMES = 8, 4  # phase 6's lanes over a mesh of the card twice
+SHARD_PGO = (320, 8)
+# tests/test_torch_sharded.py's tolerances, which the JAX package's tests set; the
+# BA poses at tests/test_torch_ba.py's for a noisy problem (0.5 px, as phase 11's),
+# where a sum in another order walks the poses along the free scale
+SHARD_BA_T_ATOL, SHARD_BA_E_RTOL = 2e-3, 0.3
+SHARD_WINDOW_ATOL, SHARD_WINDOW_E_RTOL = 1e-4, 1e-3
+SHARD_PGO_E_RTOL, SHARD_PGO_NODE_ATOL = 1e-4, 1e-5
 
 
 def drift_grays(grays):
@@ -2406,6 +2441,325 @@ def phase_examples(dev):
     return total
 
 
+def _by_point(problem, n):
+    """A BA problem with its observations in point order, each rank's
+    ``obs_pt`` indices into its own ``P/n`` points (the sharded solve's
+    input, as ``tests/test_ba.py`` builds it)."""
+    import torch
+
+    order = torch.argsort(problem.obs_pt, stable=True)
+    shard = problem.points.shape[0] // n
+    return problem._replace(obs_kf=problem.obs_kf[order], obs_pt=problem.obs_pt[order] % shard,
+                            obs_uv=problem.obs_uv[order], obs_mask=problem.obs_mask[order])
+
+
+def _shard_inputs(bucketed, pyr1, seq, model, dev):
+    """Phase 12's problems on the card: the bucketed level 0 and frame 1's
+    image (solved from the identity; the kernel checked at phase 1's pose
+    near the solution, ``model``, off the candidates' integer pixels), the
+    BA window, the photometric window and the pose graph."""
+    from visual_odometry_rs_tpu_torch.math import pose as pose_mod
+    from visual_odometry_rs_tpu_torch.parallel import ba, pose_graph
+
+    nodes, loops = _loopy_nodes(*SHARD_PGO)
+    return dict(
+        obs=bucketed.levels[0], image=pyr1[0], model0=pose_mod.identity(dev), model=model,
+        ba=ba.synthetic_problem(K=BA_K, P=BA_P, seed=BA_SEED, perturb=BA_PERTURB, noise_px=BA_NOISE_PX,
+                                device=dev)[0],
+        window=_full_width_window(seq, dev), graph=pose_graph.odometry_graph(nodes.to(dev), loop_edges=loops),
+    )
+
+
+def _run_timed(calls):
+    """Each call once for its result, then timed (CUDA events, median of
+    ``SHARD_REPS``; the pose graph's one call is its timed one): (results,
+    ms a call, ``residual_reduce`` launches of the first calls)."""
+    from visual_odometry_rs_tpu_torch.ops import residual
+
+    results, ms = {}, {}
+    residual.residual_reduce.launches = 0
+    for name, fn in calls.items():
+        box = {}
+        first = _time_ms(lambda: box.update(out=fn()), reps=1, warmup=0)
+        results[name] = box["out"]
+        ms[name] = first if name == "pgo" else None
+    launches = residual.residual_reduce.launches
+    for name, fn in calls.items():
+        if ms[name] is None:
+            ms[name] = _time_ms(fn, reps=SHARD_REPS, warmup=0)
+    return results, ms, launches
+
+
+def _sharded_solves(inputs, mesh, axis):
+    """Every sharded path of the port on ``mesh[axis]``, by ``_run_timed``."""
+    from visual_odometry_rs_tpu_torch.models import photometric_ba
+    from visual_odometry_rs_tpu_torch.parallel import ba, pose_graph, sharded
+
+    n = mesh.shape[axis]
+    problem = _by_point(inputs["ba"], n)
+    calls = {
+        "level": lambda: sharded.solve_level_point_sharded(inputs["obs"], inputs["image"], inputs["model0"], mesh,
+                                                           axis),
+        "ba_psum": lambda: ba.solve_point_sharded(problem, mesh, axis, assembly="psum"),
+        "ba_ring": lambda: ba.solve_point_sharded(problem, mesh, axis, assembly="ring"),
+        "window": lambda: photometric_ba.solve_window_sharded(inputs["window"], mesh, axis),
+        "pgo": lambda: pose_graph.solve_sparse_sharded(inputs["graph"], mesh, axis),
+    }
+    return _run_timed(calls)
+
+
+def _shard_rank(rank, where, device):
+    """A spawned rank of phase 12b: the gloo group on ``device`` (the card),
+    every sharded path, its results and counts saved for the parent."""
+    import torch
+    import torch.distributed as dist
+
+    from visual_odometry_rs_tpu_torch.ops import residual
+    from visual_odometry_rs_tpu_torch.parallel import collectives
+    from visual_odometry_rs_tpu_torch.parallel import mesh as mesh_mod
+    from visual_odometry_rs_tpu_torch.parallel import sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    mesh_mod.init_distributed(backend="gloo", init_method=f"file://{where}/store", world_size=SHARD_RANKS,
+                              rank=rank, device=dev)
+    mesh = mesh_mod.make_mesh((SHARD_RANKS,), ("points",), devices=[dev], groups={"points": dist.group.WORLD})
+    inputs = _moved(torch.load(f"{where}/inputs.pt", weights_only=False), dev)
+    results, ms, launches = _sharded_solves(inputs, mesh, "points")
+    # this rank's half of the level through the kernel and its twin
+    local = sharded.shard_level(inputs["obs"], mesh, "points")
+    params = torch.cat([inputs["model"].q, inputs["model"].t, local.intrinsics.vector()])
+    args = (inputs["image"], local.xs, local.ys, local.idepth, local.tmpl_vals, local.valid, local.jacobians, params)
+    got, ref = residual.residual_reduce(*args), residual.residual_reduce_reference(*args)
+    err = _check_close(f"rank {rank}: its {local.xs.shape[0]} candidates", got, ref, int(local.valid.sum()))
+    kernel = dict(n=local.xs.shape[0], inside=float(got[2]), err=err)
+    x = torch.arange(SHARD_RANKS * 12, dtype=torch.float32, device=dev).reshape(SHARD_RANKS * 4, 3) * (rank + 0.5)
+    ring_equal = torch.equal(collectives.ring_all_reduce(x, mesh, "points"), collectives.psum(x, mesh, "points"))
+    torch.save(dict(results=_moved(results, "cpu"), ms=ms, launches=launches, kernel=kernel, ring_equal=ring_equal),
+               f"{where}/rank{rank}.pt")
+    dist.barrier()  # no rank tears its connections down while another still uses them
+    dist.destroy_process_group()
+
+
+def _moved(tree, device):
+    """Every tensor of a tree of dicts, tuples and NamedTuples on ``device``."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _moved(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_moved(x, device) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_moved(x, device) for x in tree)
+    return tree
+
+
+def _max_diff(a, b) -> float:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return float((a.float().cpu() - b.float().cpu()).abs().max()) if a.numel() else 0.0
+    return max((_max_diff(x, y) for x, y in zip(a, b)), default=0.0)
+
+
+def _bit_equal(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, (tuple, list)):
+        return all(_bit_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _singles(inputs, dev):
+    """The single-device solves that phase 12 holds the sharded ones
+    against, with ms a call."""
+    from visual_odometry_rs_tpu_torch.models import photometric_ba
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.parallel import ba, pose_graph
+
+    problem = _by_point(inputs["ba"], 1)
+    pose_graph.solve_sparse(inputs["graph"], max_iterations=1)  # the linear-algebra libraries' first use is slow
+    calls = {
+        "level": lambda: tracker_mod.solve_level_reference(inputs["obs"], inputs["image"], inputs["model0"]),
+        "level_kernel": lambda: tracker_mod.solve_level(inputs["obs"], inputs["image"], inputs["model0"]),
+        "ba": lambda: ba.solve(problem),
+        "window": lambda: photometric_ba.solve_window(inputs["window"]),
+        "pgo": lambda: pose_graph.solve_sparse(inputs["graph"]),
+    }
+    return _run_timed(calls)[:2]
+
+
+def phase_multi_gpu(seq, bucketed, pyr1, model, lane_intrinsics, lane_depths, lane_grays, dev):
+    """Phase 12; returns the kernel row of ``residual_reduce`` as the
+    point-sharded solve launches it, per rank."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from visual_odometry_rs_tpu_torch.models import photometric_ba
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import lm_solve, residual
+    from visual_odometry_rs_tpu_torch.parallel import batch
+    from visual_odometry_rs_tpu_torch.parallel import mesh as mesh_mod
+    from visual_odometry_rs_tpu_torch.parallel import sharded
+    from visual_odometry_rs_tpu_torch.utils import profiling
+
+    inputs = _shard_inputs(bucketed, pyr1, seq, model, dev)
+    obs = inputs["obs"]
+    singles, single_ms = _singles(inputs, dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as where:
+        # (a) a world of one rank on NCCL, in this process
+        mesh_mod.init_distributed(init_method=f"file://{where}/store1", world_size=1, rank=0, device=dev)
+        if dist.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError(f"the world of one rank on {dev} runs {dist.get_backend()}")
+        world = mesh_mod.make_mesh((1,), ("points",), devices=[dev], groups={"points": dist.group.WORLD})
+        one, one_ms, launches = _sharded_solves(inputs, world, "points")
+        profiles = {
+            "the point-sharded solve on one NCCL rank": profiling.profile_device(
+                lambda: sharded.solve_level_point_sharded(obs, inputs["image"], inputs["model0"], world, "points")),
+            "the Python loop": profiling.profile_device(
+                lambda: tracker_mod.solve_level_reference(obs, inputs["image"], inputs["model0"])),
+        }
+        reads = profiles["the point-sharded solve on one NCCL rank"].device_to_host_copies
+        dist.destroy_process_group()
+        (model, failed, nb_iter), ref = one["level"], singles["level"]
+        if not (_bit_equal(model, ref.state.model) and failed == ref.failed and nb_iter == ref.nb_iter):
+            raise AssertionError("point-sharded solve on one rank: not bit-equal to solve_level_reference")
+        kernel_solve = singles["level_kernel"]
+        dt = float((model.t - kernel_solve.state.model.t).abs().max())
+        dq = float((model.q - kernel_solve.state.model.q).abs().max())
+        slack = abs(nb_iter - int(kernel_solve.nb_iter))
+        if not (dt <= SOLVE_T_ATOL and dq <= SOLVE_Q_ATOL and slack <= SOLVE_ITER_SLACK and not failed):
+            raise AssertionError(f"point-sharded solve against lm_solve_level: |dt| {dt} |dq| {dq}, nb_iter {nb_iter} "
+                                 f"vs {int(kernel_solve.nb_iter)}, failed {failed}")
+        if launches != nb_iter + 1:  # the start and every iteration's evaluation
+            raise AssertionError(f"point-sharded solve: {launches} residual_reduce launches for {nb_iter} iterations")
+        for name, single in (("ba_psum", singles["ba"]), ("ba_ring", singles["ba"]), ("window", singles["window"]),
+                             ("pgo", singles["pgo"])):
+            if not _bit_equal(tuple(one[name]), tuple(single)):
+                raise AssertionError(f"{name} on one rank: not bit-equal to the single-device solve")
+        print(f"one NCCL rank: the point-sharded level solve at {WIDTH}x{HEIGHT} level 0, N={obs.xs.shape[0]} "
+              f"(bucketed): {nb_iter} iterations, {launches} residual_reduce launches, bit-equal to "
+              f"solve_level_reference, |dt| {dt:.3e} |dq| {dq:.3e} from lm_solve_level (atol {SOLVE_T_ATOL}, "
+              f"{SOLVE_Q_ATOL}); {reads} host reads a solve (profiler); BA psum and ring, the window and the "
+              f"{SHARD_PGO[0]}-node pose graph bit-equal to their single-device solves")
+        print(f"  level: {one_ms['level']:.3f} ms a call on one NCCL rank against {single_ms['level']:.3f} ms for "
+              f"the Python loop and {single_ms['level_kernel']:.3f} ms for lm_solve_level (CUDA events, median of "
+              f"{SHARD_REPS})")
+        for label, prof in profiles.items():
+            host = sorted(prof.host_ms.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+            kernels = sorted(prof.kernel_ms.items(), key=lambda kv: -kv[1])[:PROFILE_TOP]
+            print(f"  profile of {label} (profiler on): wall {prof.wall_ms:.3f} ms, device busy "
+                  f"{prof.device_busy_ms:.3f} ms, {prof.launches} launches, {prof.device_to_host_copies} host reads; "
+                  f"host ms by event (nested events overlap): {'; '.join(f'{n} {t:.3f}' for n, t in host)}; "
+                  f"device ms by kernel: {'; '.join(f'{n[:70]} {t:.3f} x{prof.kernel_calls[n]}' for n, t in kernels)}")
+        for name, single in (("ba_psum", "ba"), ("ba_ring", "ba"), ("window", "window"), ("pgo", "pgo")):
+            print(f"  {name}: {one_ms[name]:.3f} ms a call on one NCCL rank against {single_ms[single]:.3f} ms "
+                  f"single-device (CUDA events, median of {1 if name == 'pgo' else SHARD_REPS})")
+
+        # (b) two ranks on the card over gloo
+        torch.save(_moved(inputs, "cpu"), f"{where}/inputs.pt")
+        start = time.perf_counter()
+        mp.start_processes(_shard_rank, args=(where, str(dev)), nprocs=SHARD_RANKS, start_method="spawn", join=True)
+        spawn_s = time.perf_counter() - start
+        ranks = [torch.load(f"{where}/rank{r}.pt", weights_only=False) for r in range(SHARD_RANKS)]
+    for r in ranks[1:]:
+        if not _bit_equal(tuple(r["results"]["level"]), tuple(ranks[0]["results"]["level"])):
+            raise AssertionError("the two gloo ranks disagree on the level solve")
+    if not all(r["ring_equal"] for r in ranks):
+        raise AssertionError("ring all-reduce of two ranks differs from the fixed-order sum")
+    (model2, failed2, iters2), ref_model = ranks[0]["results"]["level"], singles["level"].state.model
+    dt2 = float((model2.t - ref_model.t.cpu()).abs().max())
+    dq2 = float((model2.q - ref_model.q.cpu()).abs().max())
+    if failed2 or dt2 > SOLVE_T_ATOL or dq2 > SOLVE_Q_ATOL or abs(iters2 - singles["level"].nb_iter) > SOLVE_ITER_SLACK:
+        raise AssertionError(f"two gloo ranks: level solve |dt| {dt2} |dq| {dq2}, nb_iter {iters2}")
+    per_rank = [r["launches"] for r in ranks]
+    if any(n != iters2 + 1 for n in per_rank):
+        raise AssertionError(f"two gloo ranks: residual_reduce launches {per_rank} for {iters2} iterations")
+    res2 = ranks[0]["results"]
+    ba_dt = max(float((res2[k].poses.t - singles["ba"].poses.t.cpu()).abs().max()) for k in ("ba_psum", "ba_ring"))
+    ba_de = max(abs(float(res2[k].energy) / float(singles["ba"].energy) - 1) for k in ("ba_psum", "ba_ring"))
+    win_dt = float((res2["window"].poses.t - singles["window"].poses.t.cpu()).abs().max())
+    win_de = abs(float(res2["window"].energy) / float(singles["window"].energy) - 1)
+    pgo_dt = float((res2["pgo"].nodes.t - singles["pgo"].nodes.t.cpu()).abs().max())
+    pgo_de = abs(float(res2["pgo"].energy) / float(singles["pgo"].energy) - 1)
+    print(f"two gloo ranks on the card (spawned, {spawn_s:.1f} s with their start): level solve {iters2} iterations "
+          f"(single {singles['level'].nb_iter}), |dt| {dt2:.3e} |dq| {dq2:.3e} (atol {SOLVE_T_ATOL}, {SOLVE_Q_ATOL}); "
+          f"residual_reduce launches per rank {per_rank}; the kernel on each half against its twin "
+          f"{', '.join(format(r['kernel']['err'], '.3e') for r in ranks)}; BA |dt| {ba_dt:.3e} (atol "
+          f"{SHARD_BA_T_ATOL}), energy {ba_de:.3e} relative (rtol {SHARD_BA_E_RTOL}); window |dt| {win_dt:.3e} (atol {SHARD_WINDOW_ATOL}), "
+          f"energy {win_de:.3e} (rtol {SHARD_WINDOW_E_RTOL}); pose graph |dt| {pgo_dt:.3e} (atol "
+          f"{SHARD_PGO_NODE_ATOL}), energy {pgo_de:.3e} (rtol {SHARD_PGO_E_RTOL}); the rings equal the fixed-order sum")
+    for name in ("level", "ba_psum", "ba_ring", "window", "pgo"):
+        print(f"  {name}: {statistics.median(r['ms'][name] for r in ranks):.3f} ms a call on two gloo ranks "
+              f"(median of the ranks' CUDA-event medians)")
+    if not (ba_dt <= SHARD_BA_T_ATOL and ba_de <= SHARD_BA_E_RTOL and win_dt <= SHARD_WINDOW_ATOL
+            and win_de <= SHARD_WINDOW_E_RTOL and pgo_dt <= SHARD_PGO_NODE_ATOL and pgo_de <= SHARD_PGO_E_RTOL):
+        raise AssertionError("two gloo ranks: a sharded solve outside its tolerance")
+
+    # (c) lanes over a mesh of the card twice: two threads, two halves of the lanes
+    lanes = mesh_mod.make_mesh((2,), ("data",), devices=[dev, dev])
+    config = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=LANE_CAP)
+    intrinsics = lane_intrinsics.to(dev)
+    depths = torch.from_numpy(lane_depths[: SHARD_FRAMES + 1, :SHARD_LANES].astype(np.int32)).to(dev)
+    grays = torch.from_numpy(lane_grays[: SHARD_FRAMES + 1, :SHARD_LANES]).to(dev)
+    state = batch.batched_init_state(config, intrinsics, depths[0], grays[0], device=dev)
+    plain = batch.batched_track_sequence(config, intrinsics, state, depths[1:], grays[1:])
+    lm_solve.lm_solve_level.launches = 0
+    spread = batch.batched_track_sequence(config, intrinsics, state, depths[1:], grays[1:], mesh=lanes)
+    lane_launches = lm_solve.lm_solve_level.launches
+    step_equal = _bit_equal(batch.make_sharded_step(config, intrinsics, lanes)(state, depths[1], grays[1]),
+                            batch.batched_track_step(config, intrinsics, state, depths[1], grays[1]))
+    if not (_bit_equal(spread, plain) and step_equal):
+        raise AssertionError(f"lanes over the mesh: not bit-equal to the run without it "
+                             f"(max |d| {_max_diff(spread, plain):.3e})")
+    if lane_launches != 2 * LEVELS * SHARD_FRAMES:
+        raise AssertionError(f"lanes over the mesh: {lane_launches} lm_solve_level launches, expected "
+                             f"{2 * LEVELS * SHARD_FRAMES}")
+    # a second lane: the same frames with the depth anchors 1% further
+    win = inputs["window"]
+    wins = photometric_ba.stack_windows([win, win._replace(idepth=win.idepth * 1.01)])
+    w_plain = photometric_ba.solve_window_batched(wins, max_iterations=5)
+    w_spread = photometric_ba.solve_window_batched(wins, lanes, max_iterations=5)
+    w_pose = max(_max_diff(w_spread.poses, w_plain.poses), _max_diff(w_spread.idepth, w_plain.idepth),
+                 _max_diff(w_spread.ab, w_plain.ab))
+    w_energy = float(((w_spread.energy - w_plain.energy).abs() / w_plain.energy.abs()).max())
+    w_equal = _bit_equal(tuple(w_spread), tuple(w_plain))
+    print(f"lanes over the card twice: {SHARD_LANES} lanes x {SHARD_FRAMES} frames, bit-equal per lane to the "
+          f"run without a mesh ({lane_launches} lm_solve_level launches, {LEVELS} a frame on each half), "
+          f"make_sharded_step bit-equal; two windows over the mesh against the batch: "
+          f"{'bit-equal' if w_equal else 'not bit-equal'}, poses, depths and brightness within {w_pose:.3e} (atol "
+          f"{SHARD_WINDOW_ATOL}), energy {w_energy:.3e} relative (rtol {SHARD_WINDOW_E_RTOL}), LM iterations "
+          f"{w_spread.nb_iter.tolist()} and {w_plain.nb_iter.tolist()}")
+    # the card's sums over a lane's pairs block by the number of lanes a
+    # launch holds, so half the lanes sum in another order: the sharded
+    # window's tolerances, not bit-equality
+    if not (w_pose <= SHARD_WINDOW_ATOL and w_energy <= SHARD_WINDOW_E_RTOL
+            and torch.equal(w_spread.nb_iter.cpu(), w_plain.nb_iter.cpu())):
+        raise AssertionError("windows over the mesh: outside the tolerance of the batch")
+
+    # the kernel row: residual_reduce at rank 0's half of the level, timed
+    # here after the ranks have exited, so that no other rank shares the card
+    k = ranks[0]["kernel"]
+    half = [getattr(obs, f)[: k["n"]].contiguous() for f in ("xs", "ys", "idepth", "tmpl_vals", "valid", "jacobians")]
+    args = (inputs["image"], *half, torch.cat([inputs["model"].q, inputs["model"].t, obs.intrinsics.vector()]))
+    out = torch.empty(residual.OUT_SIZE, device=dev)
+    k_ms = _time_ms(lambda: residual.residual_reduce(*args, out=out))
+    k_plain_ms = _time_ms(lambda: residual.residual_reduce_reference(*args))
+    b_ms, b_by = _bound(k["n"], inputs["image"].shape, k["inside"], 1, residual.OUT_SIZE)
+    print(f"residual_reduce per rank (N={k['n']}, rank 0's half): kernel {k_ms:.4f} ms, twin {k_plain_ms:.4f} ms "
+          f"(CUDA events, median of 100, in this process after the ranks exit); bound {b_ms:.6f} ms by {b_by}")
+    return dict(launches=launches + sum(per_rank), max_abs_err=max(r["kernel"]["err"] for r in ranks), ms=k_ms,
+                plain_ms=k_plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def main() -> int:
     try:
         import torch
@@ -2570,6 +2924,11 @@ def main() -> int:
     solve_launches += phase_examples(dev)
     print(f"phase 11 (affine alignment, window BA, the examples): {time.perf_counter() - eleven:.1f} s")
 
+    # phase 12: the multi-GPU layer
+    twelve = time.perf_counter()
+    shard_row = phase_multi_gpu(seq, bucketed, pyr1, model, lane_intrinsics, lane_depths, lane_grays, dev)
+    print(f"phase 12 (the multi-GPU layer): {time.perf_counter() - twelve:.1f} s")
+
     def row(rows):  # level 0 as the tracker buckets it
         return next(r for r in rows if r["level"] == 0 and r["shape"] == "bucket")
 
@@ -2601,6 +2960,11 @@ def main() -> int:
                 "name": f"{kernel} ({name})", "route": "cuda", "source": f"visual_odometry_rs_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": max_err, **r, "library_ms": None,
             })
+    kernels.append({
+        "name": "residual_reduce (point-sharded, per rank)", "route": "cuda",
+        "source": "visual_odometry_rs_tpu_torch/csrc/residual_reduce.cu", "replaces": replaces, **shard_row,
+        "library_ms": None,
+    })
     print(f"chip_smoke: {time.perf_counter() - script_start:.1f} s from the build to the kernels line")
     print(json.dumps({"kernels": kernels}))
     print(card)

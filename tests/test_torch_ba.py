@@ -31,6 +31,7 @@ from visual_odometry_rs_tpu_torch import interop
 from visual_odometry_rs_tpu_torch.eval import ate
 from visual_odometry_rs_tpu_torch.math.pose import Pose
 from visual_odometry_rs_tpu_torch.parallel import ba as tba
+from visual_odometry_rs_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
 
@@ -141,8 +142,20 @@ def test_problem_and_result_round_trip(solved):
 
 
 def test_point_sharded_names_the_multi_gpu_work(solved):
-    with pytest.raises(NotImplementedError, match="A12"):
-        tba.solve_point_sharded(solved["k4_p64"]["port_problem"], None)
+    """On a mesh axis of one device the point-sharded solve is ``solve`` bit
+    for bit, with either assembly; an axis of several local devices is
+    refused, since its sums need one rank a device
+    (``tests/test_torch_sharded.py`` runs it on 4 ranks)."""
+    case = solved["k4_p64"]
+    one = tmesh.make_mesh((1,), ("points",), devices=["cpu"])
+    for assembly in ("psum", "ring"):
+        got = tba.solve_point_sharded(case["port_problem"], one, assembly=assembly)
+        for a, b in zip((got.poses.q, got.poses.t, got.points, got.energy, got.nb_iter),
+                        (case["res"].poses.q, case["res"].poses.t, case["res"].points, case["res"].energy,
+                         case["res"].nb_iter)):
+            assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="process group"):
+        tba.solve_point_sharded(case["port_problem"], tmesh.make_mesh((2,), ("points",), devices=["cpu"] * 2))
 
 
 @pytest.mark.parametrize("name", ["k4_p64_noise", "k16_p256"])

@@ -44,6 +44,7 @@ from visual_odometry_rs_tpu_torch.math.pose import Pose
 from visual_odometry_rs_tpu_torch.models import tracker as ttracker
 from visual_odometry_rs_tpu_torch.ops import pyramid as tpyr
 from visual_odometry_rs_tpu_torch.parallel import batch as tbatch
+from visual_odometry_rs_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
 
@@ -319,8 +320,9 @@ def test_vors_batch_cpu(tmp_path):
 def test_vors_batch_refuses_what_is_not_ported(tmp_path):
     """What the batched tracker refuses, as the JAX package does: a ring
     without a window and the host-recursion ``dso`` selector; the sharded
-    step (ROADMAP A12) raises; the CLI exits 1 on a missing file, also for
-    ``--save-state``/``--resume``, which are ported."""
+    step refuses a lane count that its devices do not divide; the CLI exits
+    1 on a missing file, also for ``--save-state``/``--resume``, which are
+    ported."""
     args = ["fr1", "/nonexistent/associations.txt", "--out-dir", str(tmp_path), "--cpu"]
     with redirect_stderr(io.StringIO()) as err:
         for flag in ([], ["--save-state", "x.npz"], ["--resume", "x.npz"]):
@@ -336,8 +338,11 @@ def test_vors_batch_refuses_what_is_not_ported(tmp_path):
     dso_config = ttracker.TrackerConfig(**KW, candidate_selector="dso")
     with pytest.raises(ValueError, match="dso"):
         tbatch.batched_track_sequence(dso_config, None, None, None, None)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tbatch.make_sharded_step(CONFIG, None, None)
+    step = tbatch.make_sharded_step(CONFIG, None, tmesh.make_mesh((2,), ("data",), devices=["cpu"] * 2))
+    three = Pose(torch.zeros(3, 4), torch.zeros(3, 3))
+    with pytest.raises(ValueError, match="do not split"):
+        step(tbatch.TrackState(kf=ttracker.KeyframeData(levels=()), keyframe_pose=three, current_pose=three),
+             np.zeros((3, 4, 4), np.uint16), np.zeros((3, 4, 4), np.uint8))
 
 
 def test_vors_batch_output_names_are_unique():

@@ -48,6 +48,7 @@ def test_port_imports_and_cli_help_without_jax():
                  "cli.vors_eval", "parallel.pose_graph", "models.loop_closure", "utils.pointcloud", "cli.vors_slam",
                  "models.photometric_ba", "models.sliding_window", "cli.vors_refine", "models.affine2d", "parallel.ba",
                  "utils.view", "utils.colormap", "utils.helper", "utils.image_interop", "examples",
+                 "parallel.mesh", "parallel.collectives", "parallel.sharded",
                  *(f"examples.{name}" for name in EXAMPLES)):
         assert f"visual_odometry_rs_tpu_torch.{name}" in modules
     proc = subprocess.run(

@@ -49,6 +49,7 @@ from visual_odometry_rs_tpu_torch import interop
 from visual_odometry_rs_tpu_torch.dataset import synthetic as tsyn
 from visual_odometry_rs_tpu_torch.math.pose import Pose as TPose
 from visual_odometry_rs_tpu_torch.models import photometric_ba as tpba
+from visual_odometry_rs_tpu_torch.parallel import mesh as tmesh
 
 torch.set_num_threads(1)
 
@@ -251,10 +252,20 @@ def test_window_interop_round_trip(ref):
 
 
 def test_sharded_paths_name_a12(ref):
+    """The mesh paths on meshes of CPU devices: the candidate-sharded solve
+    on a one-device axis is ``solve_window`` bit for bit, two lanes over two devices are the batched
+    solve bit for bit, and an axis of several local devices cannot carry
+    the sharded sums (``tests/test_torch_sharded.py`` runs them on 4 ranks)."""
     win = _port_window(ref["win"])
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpba.solve_window_sharded(win, mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpba.solve_window(win, mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpba.solve_window_batched(tpba.stack_windows([win]), mesh=object())
+    one = tmesh.make_mesh((1,), ("points",), devices=["cpu"])
+    two = tmesh.make_mesh((2,), ("data",), devices=["cpu"] * 2)
+    single = tpba.solve_window(win, max_iterations=ITERS, **OPTIONS)
+    got = tpba.solve_window_sharded(win, one, max_iterations=ITERS, **OPTIONS)
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(tuple(got)),
+                                                 jax.tree_util.tree_leaves(tuple(single))))
+    wins = tpba.stack_windows([win, win])
+    batched, meshed = (tpba.solve_window_batched(wins, m, max_iterations=ITERS) for m in (None, two))
+    assert all(torch.equal(a, b) for a, b in zip(jax.tree_util.tree_leaves(tuple(meshed)),
+                                                 jax.tree_util.tree_leaves(tuple(batched))))
+    with pytest.raises(ValueError, match="process group"):
+        tpba.solve_window_sharded(win, tmesh.make_mesh((2,), ("points",), devices=["cpu"] * 2))

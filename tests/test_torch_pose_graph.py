@@ -34,6 +34,7 @@ from visual_odometry_rs_tpu_torch.eval import ate as tate
 from visual_odometry_rs_tpu_torch.math import pose as tpose
 from visual_odometry_rs_tpu_torch.math import se3 as tse3
 from visual_odometry_rs_tpu_torch.math.pose import Pose as TPose
+from visual_odometry_rs_tpu_torch.parallel import mesh as tmesh
 from visual_odometry_rs_tpu_torch.parallel import pose_graph as tpg
 
 torch.set_num_threads(1)
@@ -220,5 +221,13 @@ def test_odometry_graph_accepts_detect_loops_tuples():
 
 
 def test_sharded_solve_names_the_multi_gpu_item(graph60):
-    with pytest.raises(NotImplementedError, match="A12"):
-        tpg.solve_sparse_sharded(graph60[1], None)
+    """On a mesh axis of one device the edge-sharded solve is
+    ``solve_sparse`` bit for bit; an axis of several local devices is
+    refused (``tests/test_torch_sharded.py`` runs it on 4 ranks)."""
+    one = tmesh.make_mesh((1,), ("graph",), devices=["cpu"])
+    got = tpg.solve_sparse_sharded(graph60[1], one, max_iterations=3)
+    ref = tpg.solve_sparse(graph60[1], max_iterations=3)
+    for a, b in zip(got, ref):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) else torch.equal(a, b)
+    with pytest.raises(ValueError, match="process group"):
+        tpg.solve_sparse_sharded(graph60[1], tmesh.make_mesh((2,), ("graph",), devices=["cpu"] * 2))

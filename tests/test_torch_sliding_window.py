@@ -46,6 +46,7 @@ from visual_odometry_rs_tpu_torch.math import se3 as tse3
 from visual_odometry_rs_tpu_torch.math.pose import Pose as TPose
 from visual_odometry_rs_tpu_torch.models import sliding_window as tsw
 from visual_odometry_rs_tpu_torch.models import tracker as ttracker
+from visual_odometry_rs_tpu_torch.parallel import mesh as tmesh
 from visual_odometry_rs_tpu_torch.utils import checkpoint as tckpt
 
 torch.set_num_threads(1)
@@ -292,7 +293,12 @@ def test_batched_window_refusals(run):
     config = ttracker.TrackerConfig(height=H, width=W, nb_levels=3, candidate_cap=256)
     with pytest.raises(ValueError, match="switch_transfer"):
         tsw.BatchedSlidingWindow(config, run["seq"].intrinsics, device="cpu", switch_transfer=False)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tsw.BatchedSlidingWindow(config, run["seq"].intrinsics, device="cpu", mesh=object())
+    two = tmesh.make_mesh((2,), ("data",), devices=["cpu"] * 2)
+    spread = tsw.BatchedSlidingWindow(config, run["seq"].intrinsics, device="cpu", mesh=two)
+    seq = run["seq"]
+    spread.start(np.stack([seq.depths[0]] * 3), np.stack([seq.grays[0]] * 3))
+    ident = TPose(torch.tensor([[1.0, 0.0, 0.0, 0.0]] * 3), torch.zeros(3, 3))
+    with pytest.raises(ValueError, match="do not split"):  # 3 lanes over 2 devices
+        spread.add_frame(np.stack([seq.depths[1]] * 3), np.stack([seq.grays[1]] * 3), ident)
     with pytest.raises(ValueError, match="window_size"):
         tsw.SlidingWindow(config, run["seq"].intrinsics, window_size=1, device="cpu")

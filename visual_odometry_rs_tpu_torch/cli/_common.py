@@ -69,3 +69,19 @@ def option_fields(args) -> dict:
         dso_block_size=args.dso_block_size,
         dso_threshold_coef_a=args.dso_a,
     )
+
+
+def lane_mesh(nb_lanes: int, device, message: str):
+    """A ``data`` mesh over the local devices of ``device``'s type when
+    there are several and they divide the lane count (the JAX CLIs' rule
+    with ``jax.local_device_count()``), with ``message`` on stderr; else
+    None."""
+    import sys
+
+    from ..parallel import mesh as mesh_mod
+
+    devices = mesh_mod.local_devices(device.type)
+    if len(devices) < 2 or nb_lanes % len(devices):
+        return None
+    print(message.format(lanes=nb_lanes, devices=len(devices)), file=sys.stderr)
+    return mesh_mod.make_mesh((len(devices),), ("data",), devices=devices)

@@ -18,7 +18,10 @@ defaults; ``--candidate-selector`` takes ``coarse_to_fine`` and
 ``dso_fixed`` (``dso`` needs a host recursion per keyframe).  It runs on
 CUDA unless ``--cpu`` is given, and fails if CUDA is absent.  Each sequence
 is decoded by its own ``dataset.tum_rgbd.frame_loader`` (the port's native
-PNG library on threads, or PIL where it cannot be built).
+PNG library on threads, or PIL where it cannot be built).  With several
+GPUs whose number divides the sequence count, the lanes are spread over them
+(``batched_track_sequence(mesh=)``: each GPU tracks its lanes, the state
+stays on the first), as the JAX CLI does over its local devices.
 
 ``--save-state PATH`` checkpoints the whole batched state after every clip
 (``utils.checkpoint.save_batch``: the keyframes and poses of every lane, the
@@ -213,6 +216,7 @@ def main(argv=None) -> int:
         **option_fields(args),
     )
     nb_lanes = len(all_assocs)
+    mesh = _common.lane_mesh(nb_lanes, device, "sharding batch of {lanes} over {devices} devices")
     state = batch_mod.batched_init_state(
         config, intrinsics, np.stack([d for d, _ in first]), np.stack([g for _, g in first]),
         device=device,
@@ -262,7 +266,7 @@ def main(argv=None) -> int:
                 config, intrinsics, state, clip_d, clip_g,
                 switch_cadence=args.switch_cadence, switch_subbatch=args.switch_subbatch,
                 pending0=pending, frame_offset=frame_idx, return_pending=True,
-                reloc_ring=ring, prev_pose0=prev, return_prev=True,
+                reloc_ring=ring, prev_pose0=prev, return_prev=True, mesh=mesh,
             )
             if ring is not None:
                 ring = rest[0]

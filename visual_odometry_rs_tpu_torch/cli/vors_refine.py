@@ -11,7 +11,9 @@ with the photometric window.
   (``models.sliding_window``), one frame at a time, departed frames
   marginalized into a pose prior, keyframes switched on the tracker's flow
   criterion.  ``--batch`` refines several (associations, trajectory) pairs
-  in lockstep, one batched solve a step, one output file a pair.
+  in lockstep, one batched solve a step, one output file a pair; with
+  several GPUs whose number divides the pair count, the solves' lanes are
+  spread over them.
 - ``--mode chunked``: disjoint ``--window``-frame chunks that overlap by one
   frame, one solve a chunk, no marginalization.
 
@@ -26,6 +28,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+from . import _common
 
 USAGE = "Usage: vors_refine [fr1|fr2|fr3|icl] associations_file trajectory_file"
 
@@ -366,7 +370,9 @@ def _run_batched(args, pairs, device) -> int:
         print(f"All lanes must share one image shape, got {shapes}", file=sys.stderr)
         return 1
     config, intrinsics = _config(args, *next(iter(shapes)))
-    bsw = sliding_window.BatchedSlidingWindow(config, intrinsics, device=device, **_window_options(args))
+    mesh = _common.lane_mesh(B, device, "sharding {lanes} lanes over {devices} devices")
+    bsw = sliding_window.BatchedSlidingWindow(config, intrinsics, device=device, mesh=mesh,
+                                              **_window_options(args))
 
     lengths = [len(a) - 1 for a in all_assocs]
     max_len = max(lengths)

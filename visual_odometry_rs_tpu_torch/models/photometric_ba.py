@@ -33,8 +33,17 @@ accept/reject rule and damping schedule as the JAX package.
 
 Every function takes one window; ``solve_window_batched`` adds a leading
 lane axis to every leaf (``stack_windows``), with the intrinsics shared or
-one set per lane.  ``solve_window_sharded`` and ``mesh=`` belong to the
-multi-GPU work (ROADMAP A12).
+one set per lane.
+
+- **Several devices.** ``solve_window_sharded`` spreads a window's
+  candidates over the ranks of a mesh axis (``parallel.mesh``): every
+  candidate sum of the solve (the camera system's parts, the energy, the
+  pair count, the vote on finite depths) goes through the ``allreduce``
+  hook of ``_solve_window_impl`` once, a fixed-order cross-rank sum, and
+  everything replicated (the additive floor, the pose prior, the camera
+  solve) comes after it, so the sharded and single solves share one body.
+  ``solve_window_batched(mesh=)`` spreads the lanes over a mesh axis's
+  devices, with no communication.
 """
 
 from __future__ import annotations
@@ -83,10 +92,8 @@ class WindowResult(NamedTuple):
     ab: torch.Tensor
 
 
-def _a12(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to the multi-GPU work (ROADMAP A12), which the port has not done yet"
-    )
+def _identity(x):
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -225,17 +232,26 @@ def _pad_prior(Hp: torch.Tensor, rho: torch.Tensor, P: int):
     return Hp_p, rho_p
 
 
+def _bmv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` per lane, A (B, m, n), x (B, n) → (B, m), as products summed
+    along the last axis: a lane's result does not depend on the number of
+    lanes (a batched matrix-vector product of one lane takes another BLAS
+    path than one of several, and rounds otherwise), so lanes spread over
+    devices give the bits of one batch."""
+    return torch.sum(A * x[:, None, :], dim=-1)
+
+
 def _quadratic(rho: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
     """``ρᵀHρ`` per lane: ρ (B, F, P), H (B, F, P, F, P) → (B,)."""
     B, n = rho.shape[0], rho.shape[1] * rho.shape[2]
-    v = rho.reshape(B, n, 1)
-    return (v.transpose(1, 2) @ H.reshape(B, n, n) @ v).reshape(B)
+    v = rho.reshape(B, n)
+    return torch.sum(v * _bmv(H.reshape(B, n, n), v), dim=-1)
 
 
 def _matvec(H: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``einsum("fagb,gb->fa")`` per lane."""
     B, F, P = x.shape
-    return (H.reshape(B, F * P, F * P) @ x.reshape(B, F * P, 1)).reshape(B, F, P)
+    return _bmv(H.reshape(B, F * P, F * P), x.reshape(B, F * P)).reshape(B, F, P)
 
 
 def _schur_terms(win: Window, r, j_xi, j_d, idepth, lm, w_prior: float):
@@ -260,7 +276,7 @@ def _schur_terms(win: Window, r, j_xi, j_d, idepth, lm, w_prior: float):
     D_inv = torch.ones_like(D_damped) / D_damped
     E_rows = E.permute(0, 1, 3, 2).reshape(B, F * P, N)  # (B, FP, N)
     S_fill = ((E_rows * D_inv[:, None]) @ E_rows.transpose(1, 2)).reshape(B, F, P, F, P)
-    rhs_fill = (E_rows @ (D_inv * b_d)[..., None]).reshape(B, F, P)
+    rhs_fill = _bmv(E_rows, D_inv * b_d).reshape(B, F, P)
     return A_damped, b_cam, S_fill, rhs_fill, D_inv, E, b_d
 
 
@@ -324,18 +340,20 @@ def _zero_prior(lead, device) -> tuple:
     )
 
 
-def _energy_b(win: Window, poses: Pose, idepth, ab, prior_weight: float, robust_delta: float, Hp, anchors):
+def _energy_b(win: Window, poses: Pose, idepth, ab, prior_weight: float, robust_delta: float, Hp, anchors,
+              red=_identity):
     """(B,) total energy (photometric + depth prior + pose prior) and (B,)
     number of contributing pairs (mask > 0, not the Huber-scaled weight:
-    ``energy_tol`` is calibrated per pair)."""
+    ``energy_tol`` is calibrated per pair).  ``red`` sums the candidate sums
+    over the shards; the replicated pose prior is added once, after it."""
     r, maskf, _, _ = _build_b(win, poses, idepth, robust_delta, ab, False, jacobians=False)
     validf = win.valid.to(Float)
     d = idepth - win.idepth
     e = torch.sum(r * r, dim=(1, 2)) + prior_weight * torch.sum(validf * d * d, dim=1)
+    e, n = red((e, torch.sum((maskf > 0.0).to(Float), dim=(1, 2))))
     # un-halved, as the photometric energy: a 0.5 would make accept/reject
     # watch another objective than the one the normal equations minimize
-    e = e + _quadratic(_prior_residual(poses, anchors), Hp)
-    return e, torch.sum((maskf > 0.0).to(Float), dim=(1, 2))
+    return e + _quadratic(_prior_residual(poses, anchors), Hp), n
 
 
 def _cholesky_solve(S2: torch.Tensor, rhs2: torch.Tensor) -> torch.Tensor:
@@ -366,10 +384,17 @@ def _solve_window_impl(
     pose_only_iterations: int,
     refine_depth: bool,
     idepth_init=None,
+    allreduce=_identity,
 ) -> WindowResult:
     """The staged LM solve of a batch of windows (every leaf (B, …)), each
     lane with its own prior ``(H (B,F,6,F,6), anchors Pose (B,F))`` and
     starting depths.
+
+    ``allreduce`` sums over the candidate shards (the identity on one
+    device): every
+    candidate sum passes through it exactly once, and the replicated terms
+    are added after it, so the sharded and single solves compute the same
+    numbers up to the order of the cross-shard sum.
 
     ``idepth_init`` separates the starting point from the sensor anchor
     ``win.idepth`` that the depth prior pulls toward: re-feeding refined
@@ -385,17 +410,19 @@ def _solve_window_impl(
     eye_n = torch.eye(n, dtype=Float, device=device)
 
     def energy_of(poses, ab, idepth):
-        return _energy_b(win, poses, idepth, ab, w_prior, robust_delta, Hp, anchors)
+        return _energy_b(win, poses, idepth, ab, w_prior, robust_delta, Hp, anchors, allreduce)
 
     def gn(poses, ab, idepth, lm):
         r, _, j_xi, j_d = _build_b(win, poses, idepth, robust_delta, ab, brightness)
         A_damped, b_cam, S_fill, rhs_fill, D_inv, E, b_d = _schur_terms(win, r, j_xi, j_d, idepth, lm, w_prior)
+        # the shards' parts of the camera system, in one collective
+        A_damped, b_cam, S_fill, rhs_fill = allreduce((A_damped, b_cam, S_fill, rhs_fill))
         S, rhs = _assemble(A_damped, b_cam, S_fill, rhs_fill, lm, poses, Hp, anchors)
         # gauge: frame 0 (the keyframe) does not move, pose and brightness
         S2 = torch.where(free[:, None] & free[None, :], S.reshape(B, n, n), eye_n)
         rhs2 = torch.where(free, rhs.reshape(B, n), torch.zeros_like(rhs.reshape(B, n)))
         d_cam = _cholesky_solve(S2, rhs2)
-        Et_dc = (E.permute(0, 2, 1, 3).reshape(B, -1, n) @ d_cam[..., None])[..., 0]
+        Et_dc = _bmv(E.permute(0, 2, 1, 3).reshape(B, -1, n), d_cam)
         return d_cam.reshape(B, F, P), D_inv * (b_d - Et_dc)
 
     def apply(poses, ab, idepth, d_cam, d_depth, freeze_depth):
@@ -418,6 +445,8 @@ def _solve_window_impl(
         d_cam, d_depth = gn(poses, ab, idepth, lm)
         new_poses, new_ab, new_idepth = apply(poses, ab, idepth, d_cam, d_depth, freeze_depth)
         new_energy, n_pairs = energy_of(new_poses, new_ab, new_idepth)
+        # the vote on finite depths is global: shards must accept together
+        bad_depth = allreduce(torch.sum(~torch.isfinite(new_idepth), dim=1).to(Float))
         ok = (
             torch.isfinite(new_energy)
             & (new_energy <= energy)
@@ -425,7 +454,7 @@ def _solve_window_impl(
             & torch.isfinite(new_poses.q).all(dim=(1, 2))
             & torch.isfinite(new_poses.t).all(dim=(1, 2))
             & torch.isfinite(new_ab).all(dim=(1, 2))
-            & torch.isfinite(new_idepth).all(dim=1)
+            & (bad_depth == 0)
         )
         keep = ok & active
         stop = (it + 1 >= stage_max) | (ok & (energy - new_energy <= energy_tol * torch.clamp_min(n_pairs, 1.0)))
@@ -479,7 +508,7 @@ def _options(opts: dict) -> dict:
     return {**_DEFAULTS, **opts}
 
 
-def solve_window(win: Window, *, pose_prior=None, idepth_init=None, mesh=None, **opts) -> WindowResult:
+def solve_window(win: Window, *, pose_prior=None, idepth_init=None, **opts) -> WindowResult:
     """LM-damped windowed photometric BA of one window, on its tensors'
     device.  The JAX package's options and defaults (``max_iterations=15``,
     ``lm_init=1e-4``, ``idepth_prior_weight=1e4``, ``energy_tol=0.01`` per
@@ -498,9 +527,8 @@ def solve_window(win: Window, *, pose_prior=None, idepth_init=None, mesh=None, *
     iterations (all of them with ``refine_depth=False``).
     ``pose_prior=(H (F,6,F,6), anchors Pose (F,))`` adds the energy
     ``ρᵀHρ``, ``ρ_f = log(anchor_f⁻¹ ∘ pose_f)``; ``idepth_init`` starts the
-    depths elsewhere than at the sensor's anchor ``win.idepth``."""
-    if mesh is not None:
-        raise _a12("solve_window with a mesh")
+    depths elsewhere than at the sensor's anchor ``win.idepth``;
+    ``solve_window_sharded`` spreads the candidates over several devices."""
     prior = None
     if pose_prior is not None:
         H, anchors = pose_prior
@@ -512,9 +540,39 @@ def solve_window(win: Window, *, pose_prior=None, idepth_init=None, mesh=None, *
     return WindowResult(*(Pose(x.q[0], x.t[0]) if isinstance(x, Pose) else x[0] for x in res))
 
 
-def solve_window_sharded(win: Window, mesh=None, axis: str = "points", **opts) -> WindowResult:
-    """The candidate axis sharded over several devices: not ported."""
-    raise _a12("solve_window_sharded")
+def solve_window_sharded(win: Window, mesh, axis: str = "points", *, pose_prior=None, idepth_init=None,
+                         **opts) -> WindowResult:
+    """``solve_window`` with the candidates sharded over the ranks of
+    ``mesh[axis]`` (``parallel.mesh``): every rank passes the whole window,
+    evaluates and eliminates the depths of its own ``N/n`` candidates on its
+    device against the replicated images, and the (P F, P F + 1) camera
+    system is summed across the ranks once per iteration (a fixed-order
+    sum); the camera solve runs on every rank, the depth back-substitution
+    on each rank's candidates.  Returns the replicated poses and this
+    rank's shard of the refined depths (N/n,).  The candidate count must be
+    a multiple of the axis size."""
+    from ..parallel import collectives
+
+    ag = collectives.axis_group(mesh, axis)
+    n, rank = (1, 0) if ag is None else (ag.size, ag.rank)
+    N = win.tmpl_xs.shape[0]
+    if N % n:
+        raise ValueError(f"{N} candidates do not split over the {n} ranks of axis {axis!r}")
+    device = mesh.device
+    part = slice(rank * (N // n), (rank + 1) * (N // n))
+    local = Window(
+        tmpl_xs=win.tmpl_xs[part], tmpl_ys=win.tmpl_ys[part], tmpl_vals=win.tmpl_vals[part], valid=win.valid[part],
+        idepth=win.idepth[part], poses=win.poses, images=win.images, intrinsics=win.intrinsics,
+    )
+    local = Window(*(x.to(device) for x in local))
+    prior = None
+    if pose_prior is not None:
+        H, anchors = pose_prior
+        prior = (torch.as_tensor(H, dtype=Float).to(device)[None], _lane(anchors.to(device)))
+    init = None if idepth_init is None else idepth_init[part].to(device)[None]
+    res = _solve_window_impl(_lanes(local), pose_prior=prior, idepth_init=init,
+                             allreduce=lambda x: collectives.psum(x, mesh, axis), **_options(opts))
+    return WindowResult(*(Pose(x.q[0], x.t[0]) if isinstance(x, Pose) else x[0] for x in res))
 
 
 def stack_windows(wins) -> Window:
@@ -543,9 +601,15 @@ def solve_window_batched(wins: Window, mesh=None, axis: str = "data", *, pose_pr
     the result.  Each lane keeps its own accept/reject state, so no lane's
     schedule changes another's numbers.  ``pose_prior = (H (B,F,6,F,6),
     anchors Pose (B,F))`` and ``idepth_init (B,N)`` are per lane; None is a
-    zero prior (an exact no-op)."""
-    if mesh is not None:
-        raise _a12("solve_window_batched with a mesh")
+    zero prior (an exact no-op).
+
+    With ``mesh`` the lanes are spread over the devices of ``mesh[axis]``
+    (``parallel.mesh.shard_batch``; B a multiple of their number): each
+    device solves its lanes, all at once, with no communication, and the
+    results come back to the device of ``wins``.  On the CPU every lane is
+    bit-equal to the run without a mesh (``_bmv``); a GPU's sums over a
+    lane's pairs block by the lanes a launch holds, so there a lane agrees
+    to rounding."""
     B, F = wins.poses.q.shape[:2]
     if pose_prior is not None:
         Hp, anchors = pose_prior
@@ -562,7 +626,17 @@ def solve_window_batched(wins: Window, mesh=None, axis: str = "data", *, pose_pr
             f"batched idepth_init must match wins.idepth shape {tuple(wins.idepth.shape)}; "
             f"got {tuple(idepth_init.shape)}"
         )
-    return _solve_window_impl(wins, pose_prior=pose_prior, idepth_init=idepth_init, **_options(opts))
+    opts = _options(opts)
+    if mesh is None:
+        return _solve_window_impl(wins, pose_prior=pose_prior, idepth_init=idepth_init, **opts)
+    from ..parallel import mesh as mesh_mod
+
+    devices = mesh.axis_devices(axis)
+    shards = mesh_mod.shard_batch((wins, pose_prior, idepth_init), mesh, axis)
+    results = mesh_mod.run_on_devices(
+        lambda w, prior, init: _solve_window_impl(w, pose_prior=prior, idepth_init=init, **opts), devices, shards,
+    )
+    return mesh_mod.gather_batch(results, wins.poses.q.device)
 
 
 def window_from_tracking(config, intrinsics: Intrinsics, kf_levels, images, tracked_poses: Pose,

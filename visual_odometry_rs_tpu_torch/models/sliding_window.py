@@ -22,8 +22,8 @@ unless the caller names another) and share the lane-axis helpers below, so
 a one-lane window is the batched code at B = 1.  A step reads the device
 once per LM iteration (the solves' stop flags) and once more for the
 refined poses and the flow criterion, in one transfer; the eigenvalue clamp
-of a marginalization runs on the device.  ``mesh=`` (lanes over several
-GPUs) belongs to ROADMAP A12.
+of a marginalization runs on the device.  ``BatchedSlidingWindow(mesh=)``
+spreads the lanes of its solves over the devices of a mesh axis.
 """
 
 from __future__ import annotations
@@ -143,6 +143,8 @@ class _Lanes:
         self.prior_H = None
         self.prior_anchors: Optional[Pose] = None
         self._next_id = 0
+        self.mesh = None  # lanes of the solves over a mesh axis's devices
+        self.mesh_axis = "data"
 
     # -- device inputs -------------------------------------------------------
 
@@ -237,7 +239,8 @@ class _Lanes:
         else:
             images = self.images
         win = self._window(self.models, images, level=level)
-        return photometric_ba.solve_window_batched(win, pose_prior=(Hp, anchors), idepth_init=idepth_init, **opts)
+        return photometric_ba.solve_window_batched(win, self.mesh, self.mesh_axis, pose_prior=(Hp, anchors),
+                                                   idepth_init=idepth_init, **opts)
 
     def _refine(self) -> None:
         """The coarse pose-only solve, then the full-resolution staged solve."""
@@ -457,8 +460,11 @@ class BatchedSlidingWindow(_Lanes):
     frame while the others keep F.  Lanes share ``window_size``, the
     tracker configuration and the intrinsics.  The state carries a leading
     (B,) axis: ``frame_ids`` (F, B) and ``keyframe_switches`` (B,) are
-    numpy, the rest tensors on the device.  ``mesh`` (lanes over several
-    GPUs) belongs to ROADMAP A12."""
+    numpy, the rest tensors on the device.  ``mesh`` spreads the lanes of
+    the coarse and the full solve, the bulk of a step, over the devices of
+    ``mesh[mesh_axis]`` (``photometric_ba.solve_window_batched(mesh=)``;
+    B a multiple of their number); the state, the marginalization and the
+    keyframe precompute stay on ``device``."""
 
     def __init__(
         self,
@@ -478,8 +484,6 @@ class BatchedSlidingWindow(_Lanes):
         mesh_axis: str = "data",
         device="cuda",
     ):
-        if mesh is not None:
-            raise photometric_ba._a12("BatchedSlidingWindow with a mesh")
         if not switch_transfer:
             raise ValueError(
                 "BatchedSlidingWindow requires switch_transfer=True: a reset switch would give lanes "
@@ -488,6 +492,7 @@ class BatchedSlidingWindow(_Lanes):
         super().__init__(config, intrinsics, window_size, marginalize, max_iterations, idepth_prior_weight,
                          energy_tol, robust_delta, brightness, coarse_level, device)
         self.switch_transfer = True
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.frame_ids: Optional[np.ndarray] = None
         self.keyframe_switches: Optional[np.ndarray] = None
         self.batch: Optional[int] = None

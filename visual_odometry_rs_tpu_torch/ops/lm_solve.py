@@ -171,9 +171,10 @@ def lm_solve_level(
         )
     if err != 0:
         raise RuntimeError(f"lm_solve_level kernel launch failed: CUDA error {err}")
-    lm_solve_level.launches += 1
     name = residual.variant(robust_delta, brightness)
-    lm_solve_level.variant_launches[name] = lm_solve_level.variant_launches.get(name, 0) + 1
+    with residual.COUNT_LOCK:
+        lm_solve_level.launches += 1
+        lm_solve_level.variant_launches[name] = lm_solve_level.variant_launches.get(name, 0) + 1
     return record
 
 

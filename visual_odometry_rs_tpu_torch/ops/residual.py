@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -43,6 +44,8 @@ OUT_SIZE_BRIGHTNESS = 74  # [H | g] (8, 9), sum r^2, inside count
 _THREADS = 256  # threads of a block (csrc/residual_eval.cuh)
 _CACHED = 4  # candidates a thread keeps in registers
 _MAX_CLUSTER = 8
+# the launch counts: the threads of a lane mesh (parallel.mesh) launch at once
+COUNT_LOCK = threading.Lock()
 
 
 def residuals(image, xs, ys, idepth, tmpl_vals, valid, model: Pose, k: camera.Intrinsics, ab=None):
@@ -213,9 +216,10 @@ def residual_reduce(image, xs, ys, idepth, tmpl_vals, valid, jacobians, params, 
         )
     if err != 0:
         raise RuntimeError(f"residual_reduce kernel launch failed: CUDA error {err}")
-    residual_reduce.launches += 1
     name = variant(robust_delta, ab is not None)
-    residual_reduce.variant_launches[name] = residual_reduce.variant_launches.get(name, 0) + 1
+    with COUNT_LOCK:
+        residual_reduce.launches += 1
+        residual_reduce.variant_launches[name] = residual_reduce.variant_launches.get(name, 0) + 1
     nm = np_ * (np_ + 1)
     return out[:nm].view(np_, np_ + 1), out[nm], out[nm + 1]
 

@@ -28,8 +28,13 @@ rule are the JAX package's.
   point block or a camera system that is not positive definite gives NaN,
   as JAX's ``inv`` and ``cholesky`` do, and the step is rejected.
 
-``solve_point_sharded`` (the landmark axis over a device mesh) belongs to
-the multi-GPU work (ROADMAP A12).
+``solve_point_sharded`` spreads the landmarks over the ranks of a mesh
+axis (``parallel.mesh``): each rank builds the normal equations and the
+Schur fill of its own points, the camera system is summed across the ranks
+once per iteration (``assembly="psum"``: one fixed-order sum;
+``assembly="ring"``: the ring reduce-scatter and all-gather of
+``parallel.collectives``), every rank solves it, and back-substitutes its
+own points.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ from ..math import pose as pose_mod
 from ..math import se3, so3
 from ..math.pose import Pose
 from ..utils.types import Float
+from . import collectives
 
 
 class BAProblem(NamedTuple):
@@ -190,22 +196,26 @@ def _point_inverse(n: _Normal, lm: torch.Tensor) -> torch.Tensor:
     return torch.where((info == 0)[:, None, None], inv, torch.full_like(inv, float("nan")))
 
 
-def _schur_reduce(n: _Normal, lm: torch.Tensor, K: int):
-    """Eliminate the points: ``S = damped B - F C^-1 F^T``, ``rhs = v - F C^-1 w``,
-    as (6K, 6K) and (6K,)."""
+def _schur_fill(n: _Normal, lm: torch.Tensor, K: int):
+    """The point-elimination fill of one shard of points: ``(F C^-1 F^T
+    (6K, 6K), F C^-1 w (6K,), C^-1)``."""
     P = n.F.shape[0]
     C_inv = _point_inverse(n, lm)
     FC = n.F @ C_inv[:, None]  # (P, K, 6, 3)
     fc_rows = FC.permute(1, 2, 0, 3).reshape(6 * K, 3 * P)
     f_rows = n.F.permute(1, 2, 0, 3).reshape(6 * K, 3 * P)
-    S_fill = fc_rows @ f_rows.T
-    rhs_fill = fc_rows @ n.w.reshape(3 * P)
-    eye6 = torch.eye(6, dtype=Float, device=n.B.device)
-    B_damped = n.B * (1.0 + lm * eye6)
-    on = torch.eye(K, dtype=torch.bool, device=n.B.device)[:, None, :, None]
+    return fc_rows @ f_rows.T, fc_rows @ n.w.reshape(3 * P), C_inv
+
+
+def _assemble_camera_system(B, v, S_fill, rhs_fill, lm: torch.Tensor, K: int):
+    """``S = damped blockdiag(B) - fill``, ``rhs = v - fill``, as (6K, 6K)
+    and (6K,)."""
+    eye6 = torch.eye(6, dtype=Float, device=B.device)
+    B_damped = B * (1.0 + lm * eye6)
+    on = torch.eye(K, dtype=torch.bool, device=B.device)[:, None, :, None]
     blocks = B_damped[:, :, None, :].expand(K, 6, K, 6)
     S = torch.where(on, blocks, torch.zeros_like(blocks)).reshape(6 * K, 6 * K) - S_fill
-    return S, n.v.reshape(6 * K) - rhs_fill, C_inv
+    return S, v.reshape(6 * K) - rhs_fill
 
 
 def _solve_cameras(S: torch.Tensor, rhs: torch.Tensor, K: int) -> torch.Tensor:
@@ -230,25 +240,28 @@ def _energy(problem: BAProblem, poses: Pose, points: torch.Tensor) -> torch.Tens
     return torch.sum(r * r)
 
 
-def solve(problem: BAProblem, *, max_iterations: int = 15) -> BAResult:
-    """LM bundle adjustment of the window on the device of its tensors."""
-    K = problem.poses.q.shape[0]
+def _solve_impl(problem: BAProblem, K: int, max_iterations: int, reduce_energy, reduce_system) -> BAResult:
+    """The LM loop of ``solve`` and ``solve_point_sharded``: ``reduce_energy``
+    sums an energy and ``reduce_system`` the camera system's parts ``(B, v,
+    S_fill, rhs_fill)`` over the point shards (both the identity on one
+    device)."""
     P = problem.points.shape[0]
     device = problem.points.device
     inc = _incidence(problem, K, P)
     poses, points = problem.poses, problem.points
-    energy = _energy(problem, poses, points)
+    energy = reduce_energy(_energy(problem, poses, points))
     lm = torch.tensor(1e-4, dtype=Float, device=device)
     it = 0
     while True:
         n = _build_normal(problem, inc, poses, points, K, P)
-        S, rhs, C_inv = _schur_reduce(n, lm, K)
+        S_fill, rhs_fill, C_inv = _schur_fill(n, lm, K)
+        S, rhs = _assemble_camera_system(*reduce_system(n.B, n.v, S_fill, rhs_fill), lm, K)
         d_cam = _solve_cameras(S, rhs, K)
         # back-substitute the points: delta_p = C^-1 (w - F^T delta_c)
         ft_dc = (n.F.permute(0, 3, 1, 2).reshape(P, 3, 6 * K) @ d_cam.reshape(6 * K, 1))[..., 0]
         d_pt = (C_inv @ (n.w - ft_dc)[..., None])[..., 0]
         new_poses, new_points = _apply_deltas(poses, points, d_cam, d_pt)
-        new_energy = _energy(problem, new_poses, new_points)
+        new_energy = reduce_energy(_energy(problem, new_poses, new_points))
         ok = (
             torch.isfinite(new_energy)
             & (new_energy <= energy)
@@ -264,6 +277,11 @@ def solve(problem: BAProblem, *, max_iterations: int = 15) -> BAResult:
         if it >= max_iterations or bool(converged):  # the iteration's one host read
             break
     return BAResult(poses=poses, points=points, energy=energy, nb_iter=torch.tensor(it, dtype=torch.int32))
+
+
+def solve(problem: BAProblem, *, max_iterations: int = 15) -> BAResult:
+    """LM bundle adjustment of the window on the device of its tensors."""
+    return _solve_impl(problem, problem.poses.q.shape[0], max_iterations, lambda e: e, lambda *parts: parts)
 
 
 def synthetic_problem(K: int = 4, P: int = 64, seed: int = 0, perturb: float = 0.02, noise_px: float = 0.0,
@@ -302,9 +320,44 @@ def synthetic_problem(K: int = 4, P: int = 64, seed: int = 0, perturb: float = 0
     return problem, gt_poses.to(device), gt_points.to(device)
 
 
-def solve_point_sharded(problem: BAProblem, mesh=None, axis: str = "points", **kwargs) -> BAResult:
-    """The JAX package's ``solve_point_sharded`` spreads the landmark axis
-    over a device mesh; the port's multi-GPU layer is ROADMAP A12."""
-    raise NotImplementedError(
-        "solve_point_sharded needs the multi-GPU layer (ROADMAP A12); use solve on one device"
+def solve_point_sharded(problem: BAProblem, mesh, axis: str = "points", *, max_iterations: int = 15,
+                        assembly: str = "psum") -> BAResult:
+    """BA with the landmarks sharded over the ranks of ``mesh[axis]``.
+
+    Every rank passes the whole problem with its observations partitioned
+    by point, as the JAX package's: rank ``r`` owns points ``[r P/n, (r+1)
+    P/n)`` and observations ``[r M/n, (r+1) M/n)``, whose ``obs_pt`` are
+    indices into its own points.  The camera system is summed across the
+    ranks once per iteration; the poses come back replicated, the points as
+    this rank's shard (P/n, 3).
+
+    ``assembly="psum"`` sums ``(B, v, S_fill, rhs_fill)`` in one fixed-order
+    collective; ``assembly="ring"`` runs each through the ring reduce-scatter
+    over keyframe block rows and the ring all-gather
+    (``parallel.collectives``), which needs K divisible by the axis size."""
+    K = problem.poses.q.shape[0]
+    ag = collectives.axis_group(mesh, axis)
+    n_dev, rank = (1, 0) if ag is None else (ag.size, ag.rank)
+    if assembly == "ring" and K % n_dev != 0:
+        raise ValueError(f"ring assembly needs K ({K}) divisible by mesh axis ({n_dev})")
+    if assembly not in ("psum", "ring"):
+        raise ValueError(f"unknown assembly: {assembly}")
+    P, M = problem.points.shape[0], problem.obs_pt.shape[0]
+    if P % n_dev or M % n_dev:
+        raise ValueError(f"{P} points and {M} observations must split over the {n_dev} ranks of axis {axis!r}")
+    device = mesh.device
+    pts = slice(rank * (P // n_dev), (rank + 1) * (P // n_dev))
+    obs = slice(rank * (M // n_dev), (rank + 1) * (M // n_dev))
+    local = BAProblem(
+        poses=problem.poses.to(device), points=problem.points[pts].to(device),
+        obs_kf=problem.obs_kf[obs].to(device), obs_pt=problem.obs_pt[obs].to(device),
+        obs_uv=problem.obs_uv[obs].to(device), obs_mask=problem.obs_mask[obs].to(device),
+        intrinsics=problem.intrinsics.to(device),
     )
+
+    def reduce_system(*parts):
+        if assembly == "ring":
+            return tuple(collectives.ring_all_reduce(x, mesh, axis) for x in parts)
+        return collectives.psum(parts, mesh, axis)
+
+    return _solve_impl(local, K, max_iterations, lambda e: collectives.psum(e, mesh, axis), reduce_system)

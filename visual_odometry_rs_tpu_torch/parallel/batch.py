@@ -35,9 +35,14 @@ the host; the JAX package takes the same step behind ``lax.cond(any(lost))``.
 On the CPU the same code runs the plain versions (the Python LM loop, lane
 by lane).
 
-Not in this slice: the sharded step (``make_sharded_step``; ROADMAP A12).
-The JAX package's ``_resolve_batched_interp`` picks a TPU interpolation and
-has no counterpart here.
+Several devices (``parallel.mesh``): ``batched_track_sequence(mesh=)`` and
+``make_sharded_step`` split the lanes over the devices of a mesh axis, run
+each device's lanes on it (one thread a device, so one ``lm_solve_level``
+launch a level goes to every device at once) and gather the results back
+to the state's device.  Lanes never talk to each other, so every lane is
+bit-equal to the run without a mesh.  The JAX package's
+``_resolve_batched_interp`` picks a TPU interpolation and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
 from ..ops import pyramid as pyramid_ops
 from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
+from . import mesh as mesh_mod
 
 
 class TrackState(NamedTuple):
@@ -296,6 +302,8 @@ def batched_track_sequence(
     reloc_ring=None,
     prev_pose0: Pose | None = None,
     return_prev: bool = False,
+    mesh=None,
+    axis: str = "data",
 ):
     """Track a clip of a batch, ``depths``/``imgs`` (F, B, H, W), frame by
     frame (the JAX package's ``lax.scan`` of ``_lazy_switch_step``).
@@ -323,7 +331,23 @@ def batched_track_sequence(
     and it is recovered against its ring (``_recover_lost``); switching
     lanes write their new keyframe into the ring.  The updated ring comes
     last in the outputs; the one passed in is not modified.
+
+    ``mesh`` spreads the lanes over the devices of ``mesh[axis]`` (B a
+    multiple of their number); the outputs come back to the state's device.
     """
+    if mesh is not None:
+        kwargs = dict(switch_cadence=switch_cadence, switch_subbatch=switch_subbatch, frame_offset=frame_offset,
+                      return_pending=return_pending, return_prev=return_prev)
+        shards = zip(*(mesh_mod.shard_batch(tree, mesh, axis, dim) for tree, dim in (
+            (state, 0), (depths, 1), (imgs, 1), (pending0, 0), (reloc_ring, 0), (prev_pose0, 0))))
+        outs = mesh_mod.run_on_devices(
+            lambda s, d, i, p, r, v: batched_track_sequence(
+                config, intrinsics, s, d, i, pending0=p, reloc_ring=r, prev_pose0=v, **kwargs),
+            mesh.axis_devices(axis), list(shards),
+        )
+        device = state.current_pose.q.device
+        return tuple(mesh_mod.gather_batch([o[k] for o in outs], device, 1 if k == 1 else 0)
+                     for k in range(len(outs[0])))
     reloc_on = reloc_ring is not None
     if reloc_on and config.relocalize_window <= 0:
         raise ValueError("reloc_ring passed but config.relocalize_window is 0; build the config with "
@@ -433,6 +457,18 @@ def outputs_to_numpy(poses: Pose, diags: StepDiagnostics):
     )
 
 
-def make_sharded_step(*_args, **_kwargs):
-    """Sharding a batch over several GPUs is not ported yet (ROADMAP A12)."""
-    raise NotImplementedError("the sharded batched step is not ported yet: ROADMAP A12")
+def make_sharded_step(config: TrackerConfig, intrinsics: Intrinsics, mesh, axis: str = "data"):
+    """``batched_track_step`` with the lanes spread over the devices of
+    ``mesh[axis]``: ``step(state, depths, imgs) -> (new_state,
+    diagnostics)`` on the state's device, every lane bit-equal to the
+    unsharded step."""
+    devices = mesh.axis_devices(axis)
+
+    def step(state: TrackState, depths, imgs):
+        shards = zip(*(mesh_mod.shard_batch(x, mesh, axis) for x in (state, depths, imgs)))
+        outs = mesh_mod.run_on_devices(
+            lambda s, d, i: batched_track_step(config, intrinsics, s, d, i), devices, list(shards)
+        )
+        return mesh_mod.gather_batch(outs, state.current_pose.q.device)
+
+    return step

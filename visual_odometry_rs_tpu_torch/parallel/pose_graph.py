@@ -34,8 +34,11 @@ package's accept/reject rule, damping schedule, stop rules and gauge.
   are linear recurrences solved by doubling scans: ceil(log2 N) batched
   steps each, where a loop over the nodes would be N small launches.
 
-``solve_sparse_sharded`` (edges sharded over a device mesh) belongs to the
-multi-GPU work (ROADMAP A12).
+``solve_sparse_sharded`` spreads the edges over the ranks of a mesh axis:
+every edge sum of ``solve_sparse`` (the energy, the gradient, the damping
+diagonal, the PCG matrix-vector product and the preconditioner's blocks)
+goes through one fixed-order cross-rank sum (``collectives.psum``), which is
+the identity in ``solve_sparse``.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from ..math import pose as pose_mod
 from ..math import se3
 from ..math.pose import Pose
 from ..utils.types import Float
+from . import collectives
 
 CG_CHECK_EVERY = 8  # PCG iterations between two reads of its stop flag
 
@@ -199,16 +203,21 @@ def _retract(nodes: Pose, delta: torch.Tensor) -> Pose:
     return pose_mod.renormalize_first_order(new)
 
 
-def _lm(graph: PoseGraph, max_iterations: int, step) -> PGOResult:
+def _identity(x):
+    return x
+
+
+def _lm(graph: PoseGraph, max_iterations: int, step, reduce=_identity) -> PGOResult:
     """The LM loop of both solves: ``step(nodes, lm)`` gives the (N, 6)
     twist update; accept when the energy is finite and not larger, lambda
     times 0.3 on accept and 10 on reject, stop after ``max_iterations`` or
     an accepted step that lowers the energy by less than 1e-9 (E + 1).  One
-    host read per iteration."""
+    host read per iteration.  ``reduce`` sums the energy over the edge
+    shards."""
 
     def energy_of(nodes):
         r = residuals(graph, nodes)
-        return torch.sum(r * r)
+        return reduce(torch.sum(r * r))
 
     nodes = graph.nodes
     energy = energy_of(nodes)
@@ -369,6 +378,52 @@ def _pcg(matvec, precond, b, cg_iters: int, cg_tol: float):
     return x
 
 
+def _solve_sparse_impl(graph: PoseGraph, max_iterations: int, cg_iters: int, cg_tol: float,
+                       reduce=_identity) -> PGOResult:
+    """The body of ``solve_sparse`` and ``solve_sparse_sharded``: ``reduce``
+    sums every edge-accumulated quantity over the edge shards (the JAX
+    package's ``reduce`` hook), applied before anything replicated is added."""
+    N = graph.nodes.q.shape[0]
+    device = graph.nodes.q.device
+    inc = _incidence(graph, N, cells=False)
+    mask = torch.ones((N, 6), dtype=Float, device=device)
+    mask[0] = 0.0  # gauge-fix node 0
+    chain = (graph.edge_j == graph.edge_i + 1).to(Float)
+    eye6 = torch.eye(6, dtype=Float, device=device)
+    diag6 = torch.arange(6, device=device)
+
+    def step(nodes, lm):
+        ji, jj, r = _edge_jacobians(graph, nodes)
+        g, d = reduce((
+            _node_sum(inc, -torch.einsum("eab,ea->eb", ji, r), -torch.einsum("eab,ea->eb", jj, r)),
+            # the diagonal of H, for the Marquardt damping and its floor
+            _node_sum(inc, torch.einsum("eab,eab->eb", ji, ji), torch.einsum("eab,eab->eb", jj, jj)),
+        ))
+        g = g * mask
+        damp = lm * d + 1e-8
+
+        def matvec(v):
+            vm = v * mask
+            rv = torch.einsum("eab,eb->ea", ji, vm[graph.edge_i]) + torch.einsum("eab,eb->ea", jj, vm[graph.edge_j])
+            out = reduce(_node_sum(inc, torch.einsum("eab,ea->eb", ji, rv), torch.einsum("eab,ea->eb", jj, rv)))
+            return mask * (out + damp * vm) + (1.0 - mask) * v
+
+        Hii, Hjj, Hij = _edge_hessian_blocks(ji, jj)
+        D, U = reduce((_node_sum(inc, Hii, Hjj), _node_sum(inc, Hij * chain[:, None, None], torch.zeros_like(Hij))))
+        D[:, diag6, diag6] += damp
+        # gauge: node 0's block is the identity, decoupled from node 1
+        D[0] = eye6
+        U[0] = 0.0
+        factors = _block_tridiag_factor(D, U)
+
+        def precond(v):
+            return _block_tridiag_apply(factors, v * mask) * mask + (1.0 - mask) * v
+
+        return _pcg(matvec, precond, g, cg_iters, cg_tol)
+
+    return _lm(graph, max_iterations, step, reduce)
+
+
 def solve_sparse(
     graph: PoseGraph,
     *,
@@ -383,51 +438,45 @@ def solve_sparse(
     Same gauge (node 0 fixed), damping and accept/reject rule as ``solve``;
     the results match it to the CG tolerance.  Runs on the device of the
     graph's tensors."""
-    N = graph.nodes.q.shape[0]
-    device = graph.nodes.q.device
-    inc = _incidence(graph, N, cells=False)
-    mask = torch.ones((N, 6), dtype=Float, device=device)
-    mask[0] = 0.0  # gauge-fix node 0
-    chain = (graph.edge_j == graph.edge_i + 1).to(Float)
-    eye6 = torch.eye(6, dtype=Float, device=device)
-    diag6 = torch.arange(6, device=device)
-
-    def step(nodes, lm):
-        ji, jj, r = _edge_jacobians(graph, nodes)
-        g = _node_sum(inc, -torch.einsum("eab,ea->eb", ji, r), -torch.einsum("eab,ea->eb", jj, r)) * mask
-        # the diagonal of H, for the Marquardt damping and its floor
-        d = _node_sum(inc, torch.einsum("eab,eab->eb", ji, ji), torch.einsum("eab,eab->eb", jj, jj))
-        damp = lm * d + 1e-8
-
-        def matvec(v):
-            vm = v * mask
-            rv = torch.einsum("eab,eb->ea", ji, vm[graph.edge_i]) + torch.einsum("eab,eb->ea", jj, vm[graph.edge_j])
-            out = _node_sum(inc, torch.einsum("eab,ea->eb", ji, rv), torch.einsum("eab,ea->eb", jj, rv))
-            return mask * (out + damp * vm) + (1.0 - mask) * v
-
-        Hii, Hjj, Hij = _edge_hessian_blocks(ji, jj)
-        D = _node_sum(inc, Hii, Hjj)
-        D[:, diag6, diag6] += damp
-        U = _node_sum(inc, Hij * chain[:, None, None], torch.zeros_like(Hij))
-        # gauge: node 0's block is the identity, decoupled from node 1
-        D[0] = eye6
-        U[0] = 0.0
-        factors = _block_tridiag_factor(D, U)
-
-        def precond(v):
-            return _block_tridiag_apply(factors, v * mask) * mask + (1.0 - mask) * v
-
-        return _pcg(matvec, precond, g, cg_iters, cg_tol)
-
-    return _lm(graph, max_iterations, step)
+    return _solve_sparse_impl(graph, max_iterations, cg_iters, cg_tol)
 
 
-def solve_sparse_sharded(graph: PoseGraph, mesh=None, axis: str = "graph", **kwargs) -> PGOResult:
-    """The edge-sharded ``solve_sparse`` of the JAX package spreads the
-    edges over a device mesh; the port's multi-GPU layer is ROADMAP A12."""
-    raise NotImplementedError(
-        "solve_sparse_sharded needs the multi-GPU layer (ROADMAP A12); use solve_sparse on one device"
+def solve_sparse_sharded(
+    graph: PoseGraph,
+    mesh,
+    axis: str = "graph",
+    *,
+    max_iterations: int = 20,
+    cg_iters: int = 100,
+    cg_tol: float = 1e-7,
+) -> PGOResult:
+    """``solve_sparse`` with the edges sharded over the ranks of
+    ``mesh[axis]`` (``parallel.mesh``): every rank passes the whole graph,
+    works on its ``E/n`` edges on its device, and every edge sum goes
+    through one fixed-order cross-rank sum.  The nodes stay replicated; the
+    result is the same on every rank and matches ``solve_sparse`` up to the
+    f32 order of the sums.  The edges are padded to a multiple of the axis
+    size with weight-0 self edges at node 0, which add exactly zero."""
+    ag = collectives.axis_group(mesh, axis)
+    n, rank = (1, 0) if ag is None else (ag.size, ag.rank)
+    device = mesh.device
+    E = graph.edge_i.shape[0]
+    pad = (-E) % n
+    edge_z = graph.edge_z.to(device)
+    ident = pose_mod.identity(device)
+    graph = PoseGraph(
+        nodes=graph.nodes.to(device),
+        edge_i=torch.cat([graph.edge_i.to(device), graph.edge_i.new_zeros(pad, device=device)]),
+        edge_j=torch.cat([graph.edge_j.to(device), graph.edge_j.new_zeros(pad, device=device)]),
+        edge_z=Pose(torch.cat([edge_z.q, ident.q.expand(pad, 4)]), torch.cat([edge_z.t, ident.t.expand(pad, 3)])),
+        edge_weight=torch.cat([graph.edge_weight.to(device), graph.edge_weight.new_zeros(pad, device=device)]),
     )
+    size = (E + pad) // n
+    part = slice(rank * size, (rank + 1) * size)
+    local = PoseGraph(nodes=graph.nodes, edge_i=graph.edge_i[part], edge_j=graph.edge_j[part],
+                      edge_z=Pose(graph.edge_z.q[part], graph.edge_z.t[part]), edge_weight=graph.edge_weight[part])
+    return _solve_sparse_impl(local, max_iterations, cg_iters, cg_tol,
+                              reduce=lambda x: collectives.psum(x, mesh, axis))
 
 
 def odometry_graph(nodes: Pose, loop_edges=(), noise_weight: float = 1.0) -> PoseGraph:

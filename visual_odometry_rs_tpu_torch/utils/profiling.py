@@ -68,6 +68,7 @@ class DeviceProfile(NamedTuple):
     kernel_ms: Dict[str, float]  # device time by kernel name
     kernel_calls: Dict[str, int]
     host_op_calls: Dict[str, int]  # calls of each aten operator on the host
+    host_ms: Dict[str, float]  # host time by event name (operators, CUDA and collective calls; nested ones overlap)
 
     @property
     def busy_share(self) -> float:
@@ -93,6 +94,7 @@ def profile_device(fn: Callable[[], None]) -> DeviceProfile:
     kernel_ms: Dict[str, float] = {}
     kernel_calls: Dict[str, int] = {}
     host_op_calls: Dict[str, int] = {}
+    host_ms: Dict[str, float] = {}
     for event in prof.profiler.kineto_results.events():
         name = event.name()
         if event.device_type() == DeviceType.CUDA:
@@ -103,12 +105,14 @@ def profile_device(fn: Callable[[], None]) -> DeviceProfile:
             kernel_calls[name] = kernel_calls.get(name, 0) + 1
             if name.startswith("Memcpy DtoH"):
                 copies += 1
-        elif name.startswith("cudaLaunchKernel"):
+            continue
+        host_ms[name] = host_ms.get(name, 0.0) + event.duration_ns() / 1e6
+        if name.startswith("cudaLaunchKernel"):
             launches += 1
         elif name.startswith("aten::"):
             host_op_calls[name] = host_op_calls.get(name, 0) + 1
     return DeviceProfile(
-        wall_ms, launches, copies, busy_us / 1e3, kernel_ms, kernel_calls, host_op_calls
+        wall_ms, launches, copies, busy_us / 1e3, kernel_ms, kernel_calls, host_op_calls, host_ms
     )
 
 
