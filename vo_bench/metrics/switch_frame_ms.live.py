@@ -1,0 +1,10 @@
+"""Host milliseconds of a ``Tracker.track`` call on frames that switched
+keyframes (the keyframe precompute): the median, over the window's frames
+outside the traced slice."""
+
+import statistics
+
+
+def read(record):
+    ms = [1e3 * (f["end"] - f["start"]) for f in record["frames"] if f["switched"] and not f["traced"]]
+    return statistics.median(ms) if ms else None
