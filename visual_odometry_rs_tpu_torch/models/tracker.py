@@ -58,6 +58,7 @@ from ..ops import gradient as gradient_ops
 from ..ops import lm_solve
 from ..ops import pyramid as pyramid_ops
 from ..ops import residual
+from ..utils import profiling
 from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
 
 
@@ -812,6 +813,7 @@ class Tracker:
         self.last_nb_iters: Tuple[int, ...] = (0,) * config.nb_levels
         self.last_nb_evals: Tuple[int, ...] = (0,) * config.nb_levels
         self.keyframe_switches: int = 0
+        self.frames_tracked: int = 0  # the id of the frame's spans
         # the relocalization ring: unbucketed keyframes, so that they stack
         self.relocalizations: int = 0
         self._reloc_history = []
@@ -821,63 +823,71 @@ class Tracker:
     def _precompute(self, depth_map, pyr) -> KeyframeData:
         """The unbucketed keyframe of a depth map and pyramid."""
         mask = dso_mask(self.config, pyr[0]) if self.config.candidate_selector == "dso" else None
-        return precompute_keyframe(
-            self.config, self.intrinsics, depth_tensor(depth_map, self.device), pyr, finest_mask=mask
-        )
+        with profiling.span("vors.upload", bytes=depth_map.nbytes):
+            depth = depth_tensor(depth_map, self.device)
+        return precompute_keyframe(self.config, self.intrinsics, depth, pyr, finest_mask=mask)
 
     def track(self, depth_timestamp: float, depth_map, img_timestamp: float, img) -> None:
         """Track one frame (inverse_compositional.rs:170-240)."""
-        config = self.config
-        reloc = config.relocalize_window > 0
-        pyr = pyramid_ops.mean_pyramid(config.nb_levels, image_tensor(img, self.device))
-        init_model = warm_start_init(
-            config, self.keyframe_pose, self.current_pose, self.prev_pose
-        ).to(self.device)
-        result = self._track_frame(config, self.keyframe_data, pyr, init_model, detector=reloc)
-        head = [result.flow, result.failed.to(Float)] + ([result.detector[0]] if reloc else [])
-        # the frame's one device→host read
-        stats = torch.cat(
-            [torch.stack(head), result.nb_iters.to(Float), result.nb_evals.to(Float),
-             result.model.q, result.model.t]
-        ).cpu()
-        levels, first = config.nb_levels, len(head)
-        values = stats.tolist()
-        self.last_flow = values[0]
-        self.last_failed = values[1] != 0.0
-        self.last_energy = values[2] if reloc else 0.0
-        self.last_nb_iters = tuple(int(n) for n in values[first : first + levels])
-        self.last_nb_evals = tuple(int(n) for n in values[first + levels : first + 2 * levels])
-        model = Pose(stats[-7:-3], stats[-3:])
+        self.frames_tracked += 1
+        with profiling.span("vors.track", id=self.frames_tracked, switched=0) as frame_span:
+            config = self.config
+            reloc = config.relocalize_window > 0
+            with profiling.span("vors.upload", bytes=img.nbytes):
+                img = image_tensor(img, self.device)
+            with profiling.span("vors.solve"):
+                pyr = pyramid_ops.mean_pyramid(config.nb_levels, img)
+                init_model = warm_start_init(
+                    config, self.keyframe_pose, self.current_pose, self.prev_pose
+                ).to(self.device)
+                result = self._track_frame(config, self.keyframe_data, pyr, init_model, detector=reloc)
+            head = [result.flow, result.failed.to(Float)] + ([result.detector[0]] if reloc else [])
+            levels, first = config.nb_levels, len(head)
+            # the frame's one device→host read
+            with profiling.span("vors.read.track", bytes=4 * (first + 2 * levels + 7)):
+                stats = torch.cat(
+                    [torch.stack(head), result.nb_iters.to(Float), result.nb_evals.to(Float),
+                     result.model.q, result.model.t]
+                ).cpu()
+            values = stats.tolist()
+            self.last_flow = values[0]
+            self.last_failed = values[1] != 0.0
+            self.last_energy = values[2] if reloc else 0.0
+            self.last_nb_iters = tuple(int(n) for n in values[first : first + levels])
+            self.last_nb_evals = tuple(int(n) for n in values[first + levels : first + 2 * levels])
+            model = Pose(stats[-7:-3], stats[-3:])
 
-        self.current_depth_timestamp = depth_timestamp
-        self.current_img_timestamp = img_timestamp
-        self.prev_pose = self.current_pose
-        # a failed frame keeps the pose, which also zeroes the velocity of the
-        # next warm start
-        if not self.last_failed:
-            self.current_pose = pose_mod.compose(self.keyframe_pose, pose_mod.inverse(model))
-
-        if reloc and (
-            self.last_failed
-            or not math.isfinite(self.last_energy)
-            or self.last_energy > config.relocalize_energy_accept
-        ):
-            # lost: try the ring; either way the frame does not become a
-            # keyframe, and the velocity across it is zero
-            self._try_relocalize(pyr)
+            self.current_depth_timestamp = depth_timestamp
+            self.current_img_timestamp = img_timestamp
             self.prev_pose = self.current_pose
-            return
+            # a failed frame keeps the pose, which also zeroes the velocity of the
+            # next warm start
+            if not self.last_failed:
+                self.current_pose = pose_mod.compose(self.keyframe_pose, pose_mod.inverse(model))
 
-        if self.last_flow >= config.flow_threshold:
-            raw_kf = self._precompute(depth_map, pyr)
-            self.keyframe_data = self._maybe_bucket(raw_kf)
-            self.keyframe_depth_timestamp = depth_timestamp
-            self.keyframe_img_timestamp = img_timestamp
-            self.keyframe_pose = self.current_pose
-            self.keyframe_switches += 1
-            if reloc:
-                self._reloc_history.append((raw_kf, self.keyframe_pose, depth_timestamp, img_timestamp))
-                del self._reloc_history[: -config.relocalize_window]
+            if reloc and (
+                self.last_failed
+                or not math.isfinite(self.last_energy)
+                or self.last_energy > config.relocalize_energy_accept
+            ):
+                # lost: try the ring; either way the frame does not become a
+                # keyframe, and the velocity across it is zero
+                self._try_relocalize(pyr)
+                self.prev_pose = self.current_pose
+                return
+
+            if self.last_flow >= config.flow_threshold:
+                frame_span.count(switched=1)
+                with profiling.span("vors.precompute", lanes=1):
+                    raw_kf = self._precompute(depth_map, pyr)
+                    self.keyframe_data = self._maybe_bucket(raw_kf)
+                self.keyframe_depth_timestamp = depth_timestamp
+                self.keyframe_img_timestamp = img_timestamp
+                self.keyframe_pose = self.current_pose
+                self.keyframe_switches += 1
+                if reloc:
+                    self._reloc_history.append((raw_kf, self.keyframe_pose, depth_timestamp, img_timestamp))
+                    del self._reloc_history[: -config.relocalize_window]
 
     def _try_relocalize(self, pyr) -> None:
         """Track the lost frame against every keyframe of the ring in one
@@ -915,7 +925,8 @@ class Tracker:
         One host sync reads the counts of all levels."""
         if not self.config.bucket_candidates:
             return kf
-        counts = torch.stack([obs.valid.sum() for obs in kf.levels]).tolist()
+        with profiling.span("vors.read.bucket"):
+            counts = torch.stack([obs.valid.sum() for obs in kf.levels]).tolist()
         levels = []
         for obs, count in zip(kf.levels, counts):
             bucket = max(self.config.min_bucket, 1 << (max(count, 1) - 1).bit_length())

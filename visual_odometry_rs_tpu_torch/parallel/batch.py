@@ -59,6 +59,7 @@ from ..models import relocalize as reloc_mod
 from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
 from ..ops import pyramid as pyramid_ops
+from ..utils import profiling
 from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
 from . import mesh as mesh_mod
 
@@ -348,100 +349,107 @@ def batched_track_sequence(
         device = state.current_pose.q.device
         return tuple(mesh_mod.gather_batch([o[k] for o in outs], device, 1 if k == 1 else 0)
                      for k in range(len(outs[0])))
-    reloc_on = reloc_ring is not None
-    if reloc_on and config.relocalize_window <= 0:
-        raise ValueError("reloc_ring passed but config.relocalize_window is 0; build the config with "
-                         "relocalize_window=R and the ring with batched_init_ring")
-    if config.candidate_selector == "dso":
-        raise ValueError("candidate_selector='dso' needs a host recursion per keyframe: the batched "
-                         "driver supports coarse_to_fine and dso_fixed")
-    if switch_cadence < 1:
-        raise ValueError(f"switch_cadence must be >= 1, got {switch_cadence}")
-    if switch_subbatch < -1:
-        raise ValueError(f"switch_subbatch must be >= -1, got {switch_subbatch}")
-    device = state.current_pose.q.device
-    depths = depth_tensor(depths, device)
-    imgs = image_tensor(imgs, device)
-    nb_frames, batch = imgs.shape[:2]
-    if nb_frames == 0 or depths.shape != imgs.shape or state.current_pose.q.shape != (batch, 4):
-        raise ValueError(
-            f"clips must be (F >= 1, B={state.current_pose.q.shape[0]}, H, W), got depths "
-            f"{tuple(depths.shape)} and imgs {tuple(imgs.shape)}"
-        )
-    intrinsics = intrinsics.to(device)
-    vel = config.warm_start == "constant_velocity"
-    kf, keyframe_pose, current = state
-    ring = None
-    if reloc_on:  # this call's own copy, written in place
-        ring = RelocRing(tracker_mod.map_keyframe(torch.clone, reloc_ring.kf),
-                         *(x.clone() for x in reloc_ring[1:]))
-    pending = (
-        torch.zeros(batch, dtype=torch.bool, device=device) if pending0 is None
-        else torch.as_tensor(pending0, dtype=torch.bool, device=device)
-    )
-    prev = prev_pose0.to(device) if (vel and prev_pose0 is not None) else current
-    no_switch = torch.zeros(batch, dtype=torch.bool, device=device)
-    poses: List[Pose] = []
-    results, switches, recoveries = [], [], []
-    for t in range(nb_frames):
-        init_model = tracker_mod.warm_start_init(config, keyframe_pose, current, prev)
-        pyrs = pyramid_ops.mean_pyramid(config.nb_levels, imgs[t])
-        result = tracker_mod.track_frame(config, kf, pyrs, init_model, detector=reloc_on)
-        new_current = _where_pose(result.failed, current, _solved_pose(keyframe_pose, result.model))
-        switch_now = result.flow >= config.flow_threshold  # False for a NaN flow
-        if reloc_on:
-            energy = result.detector[..., 0]
-            lost = result.failed | ~torch.isfinite(energy) | (energy > config.relocalize_energy_accept)
-            switch_now = switch_now & ~lost  # a lost frame never becomes a keyframe
-        pending = pending | switch_now
-        # a lane that pended earlier does not switch on a frame where it is lost
-        switch_mask = pending & ~lost if reloc_on else pending
-        switched = no_switch
-        if (frame_offset + t + 1) % switch_cadence == 0:
-            lanes = torch.nonzero(switch_mask.cpu()).flatten()  # the check frame's host read
-            if lanes.numel() > 0:
-                idx = lanes.to(device)
-                new_kf = tracker_mod.precompute_keyframe(
-                    config, intrinsics, depths[t].index_select(0, idx),
-                    [p.index_select(0, idx) for p in pyrs],
-                )
-                kf = tracker_mod.map_keyframe(lambda old, new: old.index_copy(0, idx, new), kf, new_kf)
-                keyframe_pose = _where_pose(switch_mask, new_current, keyframe_pose)
-                if reloc_on:
-                    _ring_write(ring, idx, kf, new_current)
-                switched, pending = switch_mask, (pending & ~switch_mask) if reloc_on else no_switch
-        relocalized = no_switch
-        if reloc_on:
-            new_current, kf, keyframe_pose, relocalized = _recover_lost(
-                config, lost, pyrs, ring, new_current, kf, keyframe_pose
+    with profiling.span("vors.clip", id=frame_offset) as clip_span:
+        reloc_on = reloc_ring is not None
+        if reloc_on and config.relocalize_window <= 0:
+            raise ValueError("reloc_ring passed but config.relocalize_window is 0; build the config with "
+                             "relocalize_window=R and the ring with batched_init_ring")
+        if config.candidate_selector == "dso":
+            raise ValueError("candidate_selector='dso' needs a host recursion per keyframe: the batched "
+                             "driver supports coarse_to_fine and dso_fixed")
+        if switch_cadence < 1:
+            raise ValueError(f"switch_cadence must be >= 1, got {switch_cadence}")
+        if switch_subbatch < -1:
+            raise ValueError(f"switch_subbatch must be >= -1, got {switch_subbatch}")
+        device = state.current_pose.q.device
+        with profiling.span("vors.upload", bytes=depths.nbytes + imgs.nbytes):
+            depths = depth_tensor(depths, device)
+            imgs = image_tensor(imgs, device)
+        nb_frames, batch = imgs.shape[:2]
+        clip_span.count(lanes=batch, frames=nb_frames)
+        if nb_frames == 0 or depths.shape != imgs.shape or state.current_pose.q.shape != (batch, 4):
+            raise ValueError(
+                f"clips must be (F >= 1, B={state.current_pose.q.shape[0]}, H, W), got depths "
+                f"{tuple(depths.shape)} and imgs {tuple(imgs.shape)}"
             )
-        if vel:
-            # across a failed, lost or relocalized lane the motion is
-            # unreliable: zero velocity next
-            reset = (result.failed | lost | relocalized) if reloc_on else result.failed
-            prev = _where_pose(reset, new_current, current)
-        current = new_current
-        poses.append(current)
-        results.append(result)
-        switches.append(switched)
-        recoveries.append(relocalized)
+        intrinsics = intrinsics.to(device)
+        vel = config.warm_start == "constant_velocity"
+        kf, keyframe_pose, current = state
+        ring = None
+        if reloc_on:  # this call's own copy, written in place
+            ring = RelocRing(tracker_mod.map_keyframe(torch.clone, reloc_ring.kf),
+                             *(x.clone() for x in reloc_ring[1:]))
+        pending = (
+            torch.zeros(batch, dtype=torch.bool, device=device) if pending0 is None
+            else torch.as_tensor(pending0, dtype=torch.bool, device=device)
+        )
+        prev = prev_pose0.to(device) if (vel and prev_pose0 is not None) else current
+        no_switch = torch.zeros(batch, dtype=torch.bool, device=device)
+        poses: List[Pose] = []
+        results, switches, recoveries = [], [], []
+        for t in range(nb_frames):
+            with profiling.span("vors.step", id=frame_offset + t):
+                with profiling.span("vors.solve"):
+                    init_model = tracker_mod.warm_start_init(config, keyframe_pose, current, prev)
+                    pyrs = pyramid_ops.mean_pyramid(config.nb_levels, imgs[t])
+                    result = tracker_mod.track_frame(config, kf, pyrs, init_model, detector=reloc_on)
+                new_current = _where_pose(result.failed, current, _solved_pose(keyframe_pose, result.model))
+                switch_now = result.flow >= config.flow_threshold  # False for a NaN flow
+                if reloc_on:
+                    energy = result.detector[..., 0]
+                    lost = result.failed | ~torch.isfinite(energy) | (energy > config.relocalize_energy_accept)
+                    switch_now = switch_now & ~lost  # a lost frame never becomes a keyframe
+                pending = pending | switch_now
+                # a lane that pended earlier does not switch on a frame where it is lost
+                switch_mask = pending & ~lost if reloc_on else pending
+                switched = no_switch
+                if (frame_offset + t + 1) % switch_cadence == 0:
+                    with profiling.span("vors.read.switch_mask"):
+                        lanes = torch.nonzero(switch_mask.cpu()).flatten()  # the check frame's host read
+                    if lanes.numel() > 0:
+                        with profiling.span("vors.precompute", lanes=lanes.numel()):
+                            idx = lanes.to(device)
+                            new_kf = tracker_mod.precompute_keyframe(
+                                config, intrinsics, depths[t].index_select(0, idx),
+                                [p.index_select(0, idx) for p in pyrs],
+                            )
+                            kf = tracker_mod.map_keyframe(lambda old, new: old.index_copy(0, idx, new), kf, new_kf)
+                        keyframe_pose = _where_pose(switch_mask, new_current, keyframe_pose)
+                        if reloc_on:
+                            _ring_write(ring, idx, kf, new_current)
+                        switched, pending = switch_mask, (pending & ~switch_mask) if reloc_on else no_switch
+                relocalized = no_switch
+                if reloc_on:
+                    new_current, kf, keyframe_pose, relocalized = _recover_lost(
+                        config, lost, pyrs, ring, new_current, kf, keyframe_pose
+                    )
+                if vel:
+                    # across a failed, lost or relocalized lane the motion is
+                    # unreliable: zero velocity next
+                    reset = (result.failed | lost | relocalized) if reloc_on else result.failed
+                    prev = _where_pose(reset, new_current, current)
+                current = new_current
+                poses.append(current)
+                results.append(result)
+                switches.append(switched)
+                recoveries.append(relocalized)
 
-    diags = StepDiagnostics(
-        flow=torch.stack([r.flow for r in results]),
-        failed=torch.stack([r.failed for r in results]),
-        switched=torch.stack(switches),
-        relocalized=torch.stack(recoveries),
-        nb_iters=torch.stack([r.nb_iters for r in results]),
-    )
-    stacked = Pose(torch.stack([p.q for p in poses]), torch.stack([p.t for p in poses]))
-    outs = (TrackState(kf=kf, keyframe_pose=keyframe_pose, current_pose=current), (stacked, diags))
-    if return_pending:
-        outs = outs + (pending,)
-    if return_prev:
-        outs = outs + (prev if vel else current,)
-    if reloc_on:
-        outs = outs + (ring,)
-    return outs
+        diags = StepDiagnostics(
+            flow=torch.stack([r.flow for r in results]),
+            failed=torch.stack([r.failed for r in results]),
+            switched=torch.stack(switches),
+            relocalized=torch.stack(recoveries),
+            nb_iters=torch.stack([r.nb_iters for r in results]),
+        )
+        stacked = Pose(torch.stack([p.q for p in poses]), torch.stack([p.t for p in poses]))
+        outs = (TrackState(kf=kf, keyframe_pose=keyframe_pose, current_pose=current), (stacked, diags))
+        if return_pending:
+            outs = outs + (pending,)
+        if return_prev:
+            outs = outs + (prev if vel else current,)
+        if reloc_on:
+            outs = outs + (ring,)
+        return outs
 
 
 def outputs_to_numpy(poses: Pose, diags: StepDiagnostics):
@@ -449,7 +457,9 @@ def outputs_to_numpy(poses: Pose, diags: StepDiagnostics):
     device→host copy: ``(q (…, 4), t (…, 3), StepDiagnostics)``."""
     parts = [poses.q, poses.t, diags.flow[..., None], diags.failed[..., None],
              diags.switched[..., None], diags.relocalized[..., None], diags.nb_iters]
-    host = torch.cat([p.to(Float) for p in parts], dim=-1).cpu().numpy()
+    with profiling.span("vors.read.outputs") as read_span:
+        host = torch.cat([p.to(Float) for p in parts], dim=-1).cpu().numpy()
+        read_span.count(bytes=host.nbytes)
     q, t, rest = host[..., 0:4], host[..., 4:7], host[..., 7:]
     return q, t, StepDiagnostics(
         flow=rest[..., 0], failed=rest[..., 1] != 0, switched=rest[..., 2] != 0,
