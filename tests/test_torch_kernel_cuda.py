@@ -351,6 +351,75 @@ def test_batched_tracking_is_the_streaming_tracker_on_the_card(cuda_device):
             assert list(trk.last_nb_iters) == diags.nb_iters[f, b].tolist()
 
 
+UPLOAD_LAYOUTS = {"contiguous": lambda x: x, "lane_slice": lambda x: x[:, 1:3]}  # shard_batch's view
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+@pytest.mark.parametrize("layout", sorted(UPLOAD_LAYOUTS))
+def test_staged_clip_upload_is_the_pageable_upload(cuda_device, layout, kind):
+    """``upload_clip`` stages a host clip through page-locked blocks and
+    widens depth on the card: the int32 depth (every u16 value) and the u8
+    images equal ``depth_tensor``/``image_tensor``'s pageable upload."""
+    from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor, upload_clip
+
+    rng = np.random.default_rng(13)
+    depths = rng.integers(0, 1 << 16, (2, 4, 256, 256), dtype=np.uint16)
+    depths[0, 1] = np.arange(1 << 16, dtype=np.uint16).reshape(256, 256)
+    imgs = rng.integers(0, 1 << 8, depths.shape, dtype=np.uint8)
+    depths, imgs = UPLOAD_LAYOUTS[layout](depths), UPLOAD_LAYOUTS[layout](imgs)
+    if kind == "tensor":
+        depths, imgs = torch.from_numpy(depths), torch.from_numpy(imgs)
+    allocs = []
+    for _ in range(2):
+        got_d, got_i, staged = upload_clip(depths, imgs, cuda_device)
+        assert staged == depths.nbytes + imgs.nbytes
+        assert (got_d.dtype, got_i.dtype, got_d.device.type) == (torch.int32, torch.uint8, "cuda")
+        assert torch.equal(got_d, depth_tensor(depths, cuda_device))
+        assert torch.equal(got_i, image_tensor(imgs, cuda_device))
+        torch.cuda.synchronize()
+        allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+    assert allocs[1] == allocs[0]  # the second clip reused the first one's page-locked blocks
+    assert torch.equal(got_d.cpu(), torch.from_numpy(np.asarray(depths).astype(np.int32)))
+    assert got_d.unique().numel() == 1 << 16  # every u16 value, lane 1 in both layouts
+    on_card = upload_clip(got_d, got_i, cuda_device)  # already there: nothing staged
+    assert on_card[2] == 0 and torch.equal(on_card[0], got_d) and torch.equal(on_card[1], got_i)
+
+
+def test_staged_clip_tracks_as_the_pageable_clip(cuda_device):
+    """A lane-sliced host clip through ``batched_track_sequence`` (staged)
+    gives the poses and diagnostics of the same clip uploaded first by the
+    pageable converters, bit for bit; its ``vors.upload`` span counts the
+    staged bytes."""
+    from visual_odometry_rs_tpu_torch.parallel import batch
+    from visual_odometry_rs_tpu_torch.utils import profiling
+    from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor
+
+    seqs = [synthetic.generate_sequence(nb_frames=5, height=H, width=W, seed=s,
+                                        twist_per_frame=[0.02 * (s + 1), 0.0, 0.0, 0.0, 0.0, 0.0])
+            for s in range(4)]
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
+    intr = seqs[0].intrinsics
+    clip_d = np.stack([np.stack([s.depths[f] for s in seqs]) for f in range(5)])[:, 1:3]
+    clip_g = np.stack([np.stack([s.grays[f] for s in seqs]) for f in range(5)])[:, 1:3]
+    state = batch.batched_init_state(config, intr, clip_d[0], clip_g[0], device=cuda_device)
+    pageable = batch.batched_track_sequence(config, intr, state, depth_tensor(clip_d[1:], cuda_device),
+                                            image_tensor(clip_g[1:], cuda_device))
+    profiling.clear()
+    try:
+        with profiling.recording():
+            staged = batch.batched_track_sequence(config, intr, state, clip_d[1:], clip_g[1:])
+        (upload,) = [s for s in profiling.spans() if s.name == "vors.upload"]
+    finally:
+        profiling.clear()
+    nbytes = clip_d[1:].nbytes + clip_g[1:].nbytes
+    assert upload.counts == {"bytes": nbytes, "staged": nbytes}
+    (poses, diags), (ref_poses, ref_diags) = staged[1], pageable[1]
+    assert torch.equal(poses.q, ref_poses.q) and torch.equal(poses.t, ref_poses.t)
+    for got, ref in zip(diags, ref_diags):
+        assert torch.equal(got, ref)
+    assert bool(diags.switched.any())
+
+
 # --- the tracker options: Huber weights, brightness, detector, lanes ---------
 
 OPTION_CASES = {

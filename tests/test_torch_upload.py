@@ -1,0 +1,47 @@
+"""``utils/types.py::upload_clip`` on the CPU: a clip's depth maps and
+images come back exactly as ``depth_tensor``/``image_tensor`` return them,
+contiguous or lane-sliced as ``parallel/mesh.py::shard_batch`` hands a
+device its lanes, and nothing is staged (page-locked staging is CUDA's;
+``tests/test_torch_kernel_cuda.py`` holds it against this path on the
+card)."""
+
+import numpy as np
+import pytest
+import torch
+
+from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor, upload_clip
+
+EDGES = [0, 1, 32767, 32768, 65535]  # u16 values that an int16 reading would get wrong
+
+
+def _clip(frames=2, lanes=4, size=16):
+    rng = np.random.default_rng(13)
+    depths = rng.integers(0, 1 << 16, (frames, lanes, size, size), dtype=np.uint16)
+    depths[..., 0, : len(EDGES)] = EDGES
+    imgs = rng.integers(0, 1 << 8, (frames, lanes, size, size), dtype=np.uint8)
+    return depths, imgs
+
+
+LAYOUTS = {
+    "contiguous": lambda x: x,
+    "lane_slice": lambda x: x[:, 2:4],  # shard_batch's view for the second of two devices
+    "reversed": lambda x: x[::-1],  # a negative stride: torch cannot view it
+}
+
+
+CASES = [(layout, kind) for layout in LAYOUTS for kind in ("numpy", "tensor")
+         if (layout, kind) != ("reversed", "tensor")]  # torch tensors have no negative strides
+
+
+@pytest.mark.parametrize("layout,kind", CASES)
+def test_upload_clip_on_the_cpu_is_the_frame_converters(layout, kind):
+    depths, imgs = (LAYOUTS[layout](x) for x in _clip())
+    if kind == "tensor":
+        depths, imgs = torch.from_numpy(depths), torch.from_numpy(imgs)
+    got_d, got_i, staged = upload_clip(depths, imgs, "cpu")
+    assert staged == 0
+    assert (got_d.dtype, got_i.dtype, got_d.device.type) == (torch.int32, torch.uint8, "cpu")
+    assert torch.equal(got_d, depth_tensor(depths, "cpu")) and torch.equal(got_i, image_tensor(imgs, "cpu"))
+    np.testing.assert_array_equal(got_d.numpy(), np.asarray(depths).astype(np.int32))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(imgs))
+    assert got_d[..., 0, : len(EDGES)].unique().tolist() == EDGES

@@ -60,7 +60,7 @@ from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
 from ..ops import pyramid as pyramid_ops
 from ..utils import profiling
-from ..utils.types import Float, depth_tensor, image_tensor, resolve_device
+from ..utils.types import Float, depth_tensor, image_tensor, resolve_device, upload_clip
 from . import mesh as mesh_mod
 
 
@@ -362,9 +362,10 @@ def batched_track_sequence(
         if switch_subbatch < -1:
             raise ValueError(f"switch_subbatch must be >= -1, got {switch_subbatch}")
         device = state.current_pose.q.device
-        with profiling.span("vors.upload", bytes=depths.nbytes + imgs.nbytes):
-            depths = depth_tensor(depths, device)
-            imgs = image_tensor(imgs, device)
+        with profiling.span("vors.upload", bytes=depths.nbytes + imgs.nbytes) as upload_span:
+            depths, imgs, staged = upload_clip(depths, imgs, device)
+            if staged:
+                upload_span.count(staged=staged)
         nb_frames, batch = imgs.shape[:2]
         clip_span.count(lanes=batch, frames=nb_frames)
         if nb_frames == 0 or depths.shape != imgs.shape or state.current_pose.q.shape != (batch, 4):
