@@ -10,8 +10,9 @@ the example programs) on the card
 at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
 (non-zero exit, no result line) unless every phase passes:
 
-0. Build the CUDA sources (``csrc/residual_reduce.cu``, ``csrc/lm_solve.cu``
-   and the empty kernel ``csrc/launch_floor.cu``), one ``nvcc`` each, and
+0. Build the CUDA sources (``csrc/residual_reduce.cu``, ``csrc/lm_solve.cu``,
+   the keyframe precompute ``csrc/precompute.cu`` and the empty kernel
+   ``csrc/launch_floor.cu``), one ``nvcc`` each, and
    the PNG library ``csrc/vors_io.cpp`` with ``g++``, all started together.
 1. Hold the fused LM evaluation ``residual_reduce`` against its plain torch
    twin at every level shape of a 640x480 keyframe (at the level caps and at
@@ -30,7 +31,8 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    level of every frame must be exactly one ``lm_solve_level`` launch and no
    ``residual_reduce`` launch; no frame may fail; at least one keyframe
    switch; the ATE must stay within 1.5x the JAX package's ATE on the same
-   sequence.  Then 10 more steady frames under ``torch.profiler`` count the
+   sequence; each keyframe (the first and every switch) exactly two
+   precompute launches.  Then 10 more steady frames under ``torch.profiler`` count the
    kernel launches and the device→host copies per frame.
 5. Track the first frames again on the CPU (the plain versions) and compare
    poses.
@@ -38,7 +40,8 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    width of ``bench.py``'s ``fps_scan_b32_diverse`` row: 32 diverse lanes at
    640x480, 6 levels, cap 4096, 10 tracked frames in clips of 8, at cadence
    1 and 4.  Every frame must make exactly 6 ``lm_solve_level`` launches for
-   the whole batch; the host may read the device only on check frames and
+   the whole batch, and each frame on which a lane switches two precompute
+   launches; the host may read the device only on check frames and
    once per clip (profiler counts; a steady frame runs under CUDA's sync
    debug mode); cadence 1 must be bit-equal per lane to the streaming
    ``Tracker`` on the card; at cadence 4 switches only on frames with
@@ -46,8 +49,13 @@ at 640x480 with 6 pyramid levels and 8192 candidates per level, and fails
    against ``track_frame_reference`` lane by lane on 2 lanes x 3 frames.
    Prints the card's frames per second at both cadences beside the
    streaming tracker's, the launches, host reads and busy share of a steady
-   and a check frame, batched against single-lane precomputes, and the
-   device time of one lane-axis solve per level against its bound.
+   and a check frame, and the device time of one lane-axis solve per level
+   against its bound.  The keyframe precompute's two kernels
+   (``precompute_keyframe_counts``) against its plain version
+   (``precompute_keyframe_reference``) on the same card inputs at 1, 9 and
+   32 lanes, the config's caps: every leaf and the per-level counts
+   bit-equal; each kernel's device time against its bytes bound, the call
+   against the plain version and against single-lane calls.
 
 7. The tracker options.  (a) Each option's instantiation of both kernels
    (Huber weights with delta 10, the brightness model, both) against its
@@ -197,7 +205,7 @@ E_RTOL, GH_RTOL, GH_ATOL = 1e-5, 1e-4, 1e-5
 SOLVE_T_ATOL, SOLVE_Q_ATOL, SOLVE_E_RTOL, SOLVE_ITER_SLACK = 1e-5, 1e-6, 1e-3, 1
 FLOW_RTOL = 1e-4  # the kernel's flow against torch's, on poses that differ by the above
 POSE_ATOL = 5e-3
-SOURCES = ("residual_reduce", "lm_solve", "launch_floor")
+SOURCES = ("residual_reduce", "lm_solve", "launch_floor", "precompute")
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and the f32 rate outside the tensor cores
 PEAK_BYTES_PER_S, PEAK_F32_FLOPS = 3.35e12, 67e12
 # f32 operations of one evaluation, counted in csrc/residual_eval.cuh: warp and
@@ -209,7 +217,7 @@ FIELDS = ("xs", "ys", "idepth", "valid", "tmpl_vals", "jacobians")
 LANES, LANE_FRAMES, LANE_CAP, LANE_CHUNK = 32, 10, 4096, 8
 LANE_CADENCES = (1, 4)
 LANE_TIMED_RUNS = 3  # timed runs of each cadence, in turns
-PRECOMPUTE_LANES = (1, 4, 32)
+PRECOMPUTE_LANES = (1, 9, 32)
 PLAIN_LANES, PLAIN_FRAMES = 2, 3  # the lane-axis launch against the per-lane loop
 # phase 7: the tracker options
 OPTIONS = {  # the solver instantiations beside the plain one
@@ -944,14 +952,83 @@ def _profiled(fn, expected_solves):
     raise AssertionError(f"profiler: {PROFILER_ATTEMPTS} runs did not record {expected_solves} solver launches")
 
 
+def _keyframe_diff(kf, ref) -> float:
+    """The largest difference of a keyframe's leaves from the reference's;
+    raises unless every leaf is bit-equal."""
+    import torch
+
+    err = 0.0
+    for lvl, (obs, want) in enumerate(zip(kf.levels, ref.levels)):
+        for f in FIELDS:
+            got, exp = getattr(obs, f), getattr(want, f)
+            if got.dtype == torch.bool:
+                got, exp = got.to(torch.int32), exp.to(torch.int32)
+            if got.shape != exp.shape:
+                raise AssertionError(f"precompute level {lvl} {f}: shape {tuple(got.shape)} != {tuple(exp.shape)}")
+            diff = float((got - exp).abs().max()) if got.numel() else 0.0
+            if not torch.equal(got, exp):
+                raise AssertionError(f"precompute level {lvl} {f}: not bit-equal to the plain version "
+                                     f"(max diff {diff})")
+            err = max(err, diff)
+    return err
+
+
+def phase_precompute(config, intrinsics, depths, grays):
+    """Phase 6's keyframe precompute: the kernels against the plain version
+    at each of ``PRECOMPUTE_LANES`` lanes; returns the kernel row's numbers
+    (at the most lanes)."""
+    import torch
+
+    from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
+    from visual_odometry_rs_tpu_torch.ops import pyramid
+
+    pyr0 = pyramid.mean_pyramid(LEVELS, grays[0])
+    caps = config.level_caps()
+    row = None
+    for k in PRECOMPUTE_LANES:
+        depth, pyr = depths[0, :k], [p[:k] for p in pyr0]
+
+        def kernels():
+            return tracker_mod.precompute_keyframe_counts(config, intrinsics, depth, pyr)
+
+        def plain():
+            return tracker_mod.precompute_keyframe_reference(config, intrinsics, depth, pyr)
+
+        (kf, counts), ref = kernels(), plain()
+        err = _keyframe_diff(kf, ref)
+        want = torch.stack([obs.valid.sum(dim=-1) for obs in ref.levels], dim=-1).to(torch.int32)
+        if not torch.equal(counts, want):
+            raise AssertionError(f"precompute of {k} lanes: counts {counts.tolist()} != {want.tolist()}")
+        k_ms = _time_ms(kernels, reps=20, warmup=3)
+        p_ms = _time_ms(plain, reps=5, warmup=1)
+        singles_ms = _time_ms(lambda: [tracker_mod.precompute_keyframe_counts(
+            config, intrinsics, depth[b], [p[b] for p in pyr]) for b in range(k)], reps=3, warmup=1)
+        maps_us = _device_us(kernels, "maps_kernel", reps=20)
+        cand_us = _device_us(kernels, "candidates_kernel", reps=20)
+        # the u8 pyramid and the int32 depth read once; the slots and the counts written once
+        nbytes = k * (sum(p[0].numel() for p in pyr) + depth[0].numel() * 4 + sum(caps) * CANDIDATE_BYTES
+                      + 4 * LEVELS)
+        b_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+        print(f"keyframe precompute of {k} lanes, caps {caps}: every leaf and the counts bit-equal to the "
+              f"plain version; valid {want.sum(dim=0).tolist()}; on the device "
+              f"maps_kernel {maps_us:.2f} us, candidates_kernel {cand_us:.2f} us (profiler, mean of 20); "
+              f"bound {b_ms:.6f} ms by bytes ({nbytes} B; {100 * b_ms / ((maps_us + cand_us) / 1e3):.2f}% of "
+              f"the two); per call {k_ms:.3f} ms, plain version {p_ms:.2f} ms, {k} single-lane calls "
+              f"{singles_ms:.2f} ms (CUDA events, median)")
+        row = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by="bytes")
+    return row
+
+
 def phase_batched(card, intrinsics, depths_np, grays_np, dev):
-    """Phase 6; returns the kernel row of the lane-axis solver."""
+    """Phase 6; returns the kernel rows of the lane-axis solver and of the
+    keyframe precompute."""
     import numpy as np
     import torch
 
     from visual_odometry_rs_tpu_torch.math import pose as pose_mod
     from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
     from visual_odometry_rs_tpu_torch.ops import lm_solve, pyramid, residual
+    from visual_odometry_rs_tpu_torch.ops import precompute as precompute_ops
     from visual_odometry_rs_tpu_torch.parallel import batch
 
     config = tracker_mod.TrackerConfig(height=HEIGHT, width=WIDTH, nb_levels=LEVELS, candidate_cap=LANE_CAP)
@@ -976,11 +1053,18 @@ def phase_batched(card, intrinsics, depths_np, grays_np, dev):
     chunks = -(-LANE_FRAMES // LANE_CHUNK)
     residual.residual_reduce.launches = 0
     lm_solve.lm_solve_level.launches = 0
+    pre_before = precompute_ops.keyframe_levels.launches
     q1, t1, diags1, _ = _batched_run(config, intrinsics, state0, depths, grays, 1)
     launches = lm_solve.lm_solve_level.launches
     if launches != LEVELS * LANE_FRAMES or residual.residual_reduce.launches != 0:
         raise AssertionError(f"batched cadence 1: {launches} lm_solve_level launches for {LANE_FRAMES} frames, "
                              f"{residual.residual_reduce.launches} residual_reduce")
+    pre_launches = precompute_ops.keyframe_levels.launches - pre_before
+    switch_frames = int(diags1.switched.any(axis=1).sum())
+    if pre_launches != 2 * switch_frames:
+        raise AssertionError(f"batched cadence 1: {pre_launches} precompute launches for {switch_frames} frames "
+                             "with a switch, expected two each")
+    print(f"batched cadence 1: {pre_launches} precompute launches for {switch_frames} frames with a switch")
     if not (np.array_equal(q1, s_q) and np.array_equal(t1, s_t) and np.array_equal(diags1.switched, s_switched)):
         raise AssertionError(f"batched cadence 1 is not bit-equal to the streaming Tracker: max |dt| "
                              f"{np.abs(t1 - s_t).max()}, switches {diags1.switched.sum()} vs {s_switched.sum()}")
@@ -1049,15 +1133,8 @@ def phase_batched(card, intrinsics, depths_np, grays_np, dev):
         if prof.device_to_host_copies != expected:
             raise AssertionError(f"{kind} frame {f + 1}: {prof.device_to_host_copies} host reads, expected {expected}")
 
-    # precompute: k lanes batched against k single-lane precomputes
-    pyr0 = pyramid.mean_pyramid(LEVELS, grays[0])
-    for k in PRECOMPUTE_LANES:
-        batched_ms = _time_ms(lambda: tracker_mod.precompute_keyframe(
-            config, intrinsics, depths[0, :k], [p[:k] for p in pyr0]), reps=5, warmup=1)
-        singles_ms = _time_ms(lambda: [tracker_mod.precompute_keyframe(
-            config, intrinsics, depths[0, b], [p[b] for p in pyr0]) for b in range(k)], reps=3, warmup=1)
-        print(f"keyframe precompute of {k} lanes: batched {batched_ms:.2f} ms, {k} single-lane "
-              f"{singles_ms:.2f} ms (CUDA events around the call, median)")
+    # the keyframe precompute's kernels against the plain version
+    pre_row = dict(launches=pre_launches, **phase_precompute(config, intrinsics, depths, grays))
 
     # one lane-axis solve per level at B = 32, from identity, frame 1
     pyr1 = pyramid.mean_pyramid(LEVELS, grays[1])
@@ -1091,7 +1168,7 @@ def phase_batched(card, intrinsics, depths_np, grays_np, dev):
             row = dict(launches=launches, max_abs_err=plain_err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
     print(f"batched fps of the card: cadence 1 {fps[1]:.1f}, cadence 4 {fps[4]:.1f}; streaming "
           f"{frames / s_seconds:.1f} ({card})")
-    return row
+    return row, pre_row
 
 
 # ---------------------------------------------------------------------------
@@ -2773,6 +2850,7 @@ def main() -> int:
     from visual_odometry_rs_tpu_torch.eval import ate
     from visual_odometry_rs_tpu_torch.models import tracker as tracker_mod
     from visual_odometry_rs_tpu_torch.ops import build, lm_solve, pyramid, residual
+    from visual_odometry_rs_tpu_torch.ops import precompute as precompute_ops
     from visual_odometry_rs_tpu_torch.utils import profiling
 
     script_start = time.perf_counter()
@@ -2822,9 +2900,13 @@ def main() -> int:
     # phase 4: the main path on CUDA
     residual.residual_reduce.launches = 0
     lm_solve.lm_solve_level.launches = 0
+    precompute_ops.keyframe_levels.launches = 0
     torch.cuda.reset_peak_memory_stats()
     trk, poses, seconds, evaluations = _track(seq, FRAMES, dev)
     solve_launches = lm_solve.lm_solve_level.launches
+    pre_launches = precompute_ops.keyframe_levels.launches
+    if pre_launches != 2 * (1 + trk.keyframe_switches):
+        raise AssertionError(f"{pre_launches} precompute launches for {1 + trk.keyframe_switches} keyframes")
     if solve_launches != LEVELS * (FRAMES - 1):
         raise AssertionError(f"lm_solve_level launches {solve_launches} != {LEVELS} x {FRAMES - 1}")
     if residual.residual_reduce.launches != 0:
@@ -2836,7 +2918,8 @@ def main() -> int:
     err = ate.ate_rmse(poses, seq.poses[:FRAMES])
     print(f"track: {FRAMES - 1} frames at {WIDTH}x{HEIGHT}, {LEVELS} levels, cap {CAP}, bucketing on; "
           f"keyframe switches {trk.keyframe_switches}; failed frames 0; lm_solve_level launches "
-          f"{solve_launches}; evaluations reported by the device {evaluations}")
+          f"{solve_launches}; precompute launches {pre_launches}; evaluations reported by the device "
+          f"{evaluations}")
     _frame_times("main path", seconds)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     print(f"ATE {err:.6e} m; bound {ATE_BOUND:.6e} m = 1.5 x JAX package ATE {JAX_ATE:.6e} m")
@@ -2883,7 +2966,8 @@ def main() -> int:
     lane_intrinsics, lane_depths, lane_grays = _diverse_lanes()
     print(f"rendered {LANES} lanes x {LANE_FRAMES + 1} frames at {WIDTH}x{HEIGHT} in "
           f"{time.perf_counter() - start:.1f} s")
-    lane_row = phase_batched(card, lane_intrinsics, lane_depths, lane_grays, dev)
+    lane_row, pre_row = phase_batched(card, lane_intrinsics, lane_depths, lane_grays, dev)
+    pre_row["launches"] += pre_launches
 
     # phase 7: the tracker options
     seven = time.perf_counter()
@@ -2948,6 +3032,11 @@ def main() -> int:
         "name": f"lm_solve_level (lane axis, {LANES} lanes)", "route": "cuda",
         "source": "visual_odometry_rs_tpu_torch/csrc/lm_solve.cu", "replaces": replaces, **lane_row,
         "library_ms": None,
+    })
+    kernels.append({
+        "name": f"maps_kernel + candidates_kernel (keyframe precompute, {PRECOMPUTE_LANES[-1]} lanes)",
+        "route": "cuda", "source": "visual_odometry_rs_tpu_torch/csrc/precompute.cu",
+        "replaces": "visual_odometry_rs_tpu/models/tracker.py:456", **pre_row, "library_ms": None,
     })
     for name, (eval_err, solve_err, eval_row, solve_row) in option_results.items():
         for kernel, source, launches, max_err, r in (

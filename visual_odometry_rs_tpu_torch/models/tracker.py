@@ -20,10 +20,12 @@ package builds that order with one-hot matmuls; here it is a cumsum and a
 scatter.
 
 ``precompute_keyframe`` and ``track_frame`` also take a leading lane axis
-(one sequence per lane, the batched tracker of ``parallel.batch``): the
-precompute runs one set of tensor operations for all lanes, and on a GPU
-``track_frame`` is still six launches, each solving one level for every
-lane.  The intrinsics are shared by all lanes.
+(one sequence per lane, the batched tracker of ``parallel.batch``): on a GPU
+the precompute is two launches of the hand-written kernels of
+``ops.precompute`` (on the CPU its plain version,
+``precompute_keyframe_reference``, one set of tensor operations) and
+``track_frame`` six launches, each solving one level for every lane.  The
+intrinsics are shared by all lanes.
 
 The tracker's options (the JAX package's ``TrackerConfig`` fields of the
 same names) run in the same launches: Huber weights (``robust_delta``) and
@@ -56,6 +58,7 @@ from ..math.optimizer import LMState, SolveResult, damped_solve, iterative_solve
 from ..math.pose import Pose
 from ..ops import gradient as gradient_ops
 from ..ops import lm_solve
+from ..ops import precompute as precompute_ops
 from ..ops import pyramid as pyramid_ops
 from ..ops import residual
 from ..utils import profiling
@@ -242,33 +245,144 @@ def precompute_keyframe(
     ``depth_map`` is the int32 depth tensor on the pyramid's device.  With a
     leading lane axis (depth (K, H, W), levels (K, h, w)) every leaf but the
     shared intrinsics carries it too, (K, N, …), bit-equal to K one-lane
-    calls, from one set of tensor operations.  ``finest_mask`` replaces the
-    level-0 candidate selection: it carries the ``dso`` selector's mask,
-    whose host recursion cannot run here (``dso_mask``).
+    calls.  ``finest_mask`` replaces the level-0 candidate selection: it
+    carries the ``dso`` selector's mask, whose host recursion cannot run
+    here (``dso_mask``).
+
+    CPU tensors take ``precompute_keyframe_reference``; CUDA tensors the two
+    kernels of ``ops.precompute`` (the intrinsics on the same device), whose
+    every leaf is the reference's bits.
     """
+    if depth_map.device.type == "cpu":
+        return precompute_keyframe_reference(config, intrinsics, depth_map, img_pyramid, finest_mask)
+    return _precompute_kernels(config, intrinsics, depth_map, img_pyramid, finest_mask)[0]
+
+
+def precompute_keyframe_counts(
+    config: TrackerConfig,
+    intrinsics: Intrinsics,
+    depth_map: torch.Tensor,
+    img_pyramid: List[torch.Tensor],
+    finest_mask: torch.Tensor | None = None,
+    levels=None,
+) -> Tuple[KeyframeData, torch.Tensor]:
+    """``precompute_keyframe`` and the valid candidates of each level, (…, L)
+    int32 on the device: on CUDA the counts the candidate kernel writes
+    beside the slots, so reading them launches nothing.  ``levels``, the
+    ``level_intrinsics`` of ``intrinsics``, spares a caller that precomputes
+    many keyframes computing them each time (the CPU path ignores it)."""
+    if depth_map.device.type == "cpu":
+        kf = precompute_keyframe_reference(config, intrinsics, depth_map, img_pyramid, finest_mask)
+        return kf, torch.stack([obs.valid.sum(dim=-1) for obs in kf.levels], dim=-1).to(torch.int32)
+    return _precompute_kernels(config, intrinsics, depth_map, img_pyramid, finest_mask, levels)
+
+
+def precompute_keyframe_into(
+    config: TrackerConfig,
+    intrinsics: Intrinsics,
+    depth_map: torch.Tensor,
+    img_pyramid: List[torch.Tensor],
+    lanes: torch.Tensor,
+    kf: KeyframeData,
+    levels=None,
+) -> None:
+    """Precompute lanes ``lanes`` ((K,) int64 on the device) of a batch,
+    depth (B, H, W) and pyramid levels (B, h, w), into rows ``lanes`` of the
+    batched keyframe ``kf``, in place: every lane field, the template
+    included, gets what ``index_copy(0, lanes, …)`` of ``precompute_keyframe``
+    of the picked lanes gives.  On CUDA the two kernels read the lanes where
+    they lie and write the rows themselves; on the CPU the reference runs on
+    the picked lanes and ``index_copy_`` writes them.  ``levels`` as for
+    ``precompute_keyframe_counts``."""
+    if depth_map.device.type == "cpu":
+        new = precompute_keyframe_reference(
+            config, intrinsics, depth_map.index_select(0, lanes), [p.index_select(0, lanes) for p in img_pyramid]
+        )
+        for old, fresh in zip(kf.levels, new.levels):
+            for f in LANE_FIELDS:
+                getattr(old, f).index_copy_(0, lanes, getattr(fresh, f))
+        return
+    mask = None
+    if config.candidate_selector != "coarse_to_fine":
+        mask = _selector_mask(config, img_pyramid[0].index_select(0, lanes))
+    precompute_ops.keyframe_levels(
+        img_pyramid, depth_map, (levels or level_intrinsics(intrinsics, len(img_pyramid)))[1],
+        config.level_caps(), finest_mask=mask, lanes=lanes,
+        into=[(obs.xs, obs.ys, obs.idepth, obs.valid, obs.tmpl_vals, obs.jacobians, obs.template)
+              for obs in kf.levels],
+        **_kernel_settings(config),
+    )
+
+
+def level_intrinsics(intrinsics: Intrinsics, nb_levels: int) -> Tuple[List[Intrinsics], torch.Tensor]:
+    """``camera.multi_res`` of the intrinsics, and the same levels as one
+    (L, 5) tensor ``[cx cy fx fy skew]``: the precompute kernels' input."""
+    levels = camera_mod.multi_res(intrinsics, nb_levels)
+    return levels, torch.stack([k.vector() for k in levels])
+
+
+def _kernel_settings(config: TrackerConfig) -> dict:
+    return dict(scale=config.depth_scale, variance=config.idepth_variance,
+                threshold=config.candidates_diff_threshold)
+
+
+def _selector_mask(config: TrackerConfig, image0: torch.Tensor) -> torch.Tensor | None:
+    """The finest mask of the configured selector: the ``dso_fixed``
+    selector's, or None for ``coarse_to_fine``, which the kernels and the
+    reference select themselves."""
+    selector = config.candidate_selector
+    if selector == "dso":
+        raise ValueError(
+            "candidate_selector='dso' needs its host recursion (dso_mask): use the host "
+            "Tracker, pass finest_mask=, or use 'dso_fixed'.  The batched driver supports "
+            "coarse_to_fine and dso_fixed."
+        )
+    if selector == "dso_fixed":
+        return dso_mod.select_fixed_block(
+            gradient_ops.norm_direct(image0), config.dso_target, block_size=config.dso_block_size,
+            region_config=_region_config(config), seed=config.dso_seed,
+        )
+    if selector != "coarse_to_fine":
+        raise ValueError(f"unknown candidate_selector {selector!r}")
+    return None
+
+
+def _precompute_kernels(config, intrinsics, depth_map, img_pyramid, finest_mask, levels=None):
+    """``precompute_keyframe_counts`` on CUDA tensors: two launches."""
+    intr_levels, table = levels or level_intrinsics(intrinsics, len(img_pyramid))
+    if finest_mask is None:
+        finest_mask = _selector_mask(config, img_pyramid[0])
+    if finest_mask is not None:
+        finest_mask = torch.broadcast_to(finest_mask, depth_map.shape).to(torch.bool).contiguous()
+    fields, counts = precompute_ops.keyframe_levels(
+        img_pyramid, depth_map, table, config.level_caps(), finest_mask=finest_mask,
+        **_kernel_settings(config),
+    )
+    return KeyframeData(levels=tuple(
+        LevelObs(k, img, *f) for k, img, f in zip(intr_levels, img_pyramid, fields)
+    )), counts
+
+
+def precompute_keyframe_reference(
+    config: TrackerConfig,
+    intrinsics: Intrinsics,
+    depth_map: torch.Tensor,
+    img_pyramid: List[torch.Tensor],
+    finest_mask: torch.Tensor | None = None,
+) -> KeyframeData:
+    """``precompute_keyframe`` as plain tensor operations, on any device:
+    the plain version that the kernels are held against, and the CPU path
+    (inverse_compositional.rs:105-161).  With a lane axis one set of tensor
+    operations serves all lanes."""
     nb_levels = len(img_pyramid)
     intr_levels = camera_mod.multi_res(intrinsics, nb_levels)
     grads = [gradient_ops.centered_f32(img_pyramid[0])]
     grads.extend(gradient_ops.gradients_xy_f32(img_pyramid))
     if finest_mask is None:
-        selector = config.candidate_selector
-        if selector == "dso":
-            raise ValueError(
-                "candidate_selector='dso' needs its host recursion (dso_mask): use the host "
-                "Tracker, pass finest_mask=, or use 'dso_fixed'.  The batched driver supports "
-                "coarse_to_fine and dso_fixed."
-            )
-        if selector == "dso_fixed":
-            finest_mask = dso_mod.select_fixed_block(
-                gradient_ops.norm_direct(img_pyramid[0]), config.dso_target,
-                block_size=config.dso_block_size, region_config=_region_config(config),
-                seed=config.dso_seed,
-            )
-        elif selector == "coarse_to_fine":
-            sqn = [gradient_ops.squared_norm_f32(gx, gy) for gx, gy in grads]
-            finest_mask = coarse_to_fine.select(config.candidates_diff_threshold, sqn)[-1]
-        else:
-            raise ValueError(f"unknown candidate_selector {selector!r}")
+        finest_mask = _selector_mask(config, img_pyramid[0])
+    if finest_mask is None:  # coarse_to_fine
+        sqn = [gradient_ops.squared_norm_f32(gx, gy) for gx, gy in grads]
+        finest_mask = coarse_to_fine.select(config.candidates_diff_threshold, sqn)[-1]
     id0 = idepth_mod.masked(
         idepth_mod.from_depth(config.depth_scale, depth_map, config.idepth_variance),
         finest_mask,
@@ -796,9 +910,10 @@ class Tracker:
         self.config = config
         self.device = resolve_device(device)
         self.intrinsics = intrinsics.to(self.device)
+        self._levels = level_intrinsics(self.intrinsics, config.nb_levels)  # every keyframe's
         pyr = pyramid_ops.mean_pyramid(config.nb_levels, image_tensor(img, self.device))
-        raw_kf = self._precompute(depth_map, pyr)
-        self.keyframe_data = self._maybe_bucket(raw_kf)
+        raw_kf, counts = self._precompute(depth_map, pyr)
+        self.keyframe_data = self._maybe_bucket(raw_kf, counts)
         self.keyframe_pose = pose_mod.identity()
         self.keyframe_depth_timestamp = depth_timestamp
         self.keyframe_img_timestamp = img_timestamp
@@ -820,12 +935,14 @@ class Tracker:
         if config.relocalize_window > 0:
             self._reloc_history.append((raw_kf, self.keyframe_pose, depth_timestamp, img_timestamp))
 
-    def _precompute(self, depth_map, pyr) -> KeyframeData:
-        """The unbucketed keyframe of a depth map and pyramid."""
+    def _precompute(self, depth_map, pyr) -> Tuple[KeyframeData, torch.Tensor]:
+        """The unbucketed keyframe of a depth map and pyramid, and its valid
+        candidates a level on the device."""
         mask = dso_mask(self.config, pyr[0]) if self.config.candidate_selector == "dso" else None
         with profiling.span("vors.upload", bytes=depth_map.nbytes):
             depth = depth_tensor(depth_map, self.device)
-        return precompute_keyframe(self.config, self.intrinsics, depth, pyr, finest_mask=mask)
+        return precompute_keyframe_counts(self.config, self.intrinsics, depth, pyr, finest_mask=mask,
+                                          levels=self._levels)
 
     def track(self, depth_timestamp: float, depth_map, img_timestamp: float, img) -> None:
         """Track one frame (inverse_compositional.rs:170-240)."""
@@ -878,9 +995,11 @@ class Tracker:
 
             if self.last_flow >= config.flow_threshold:
                 frame_span.count(switched=1)
-                with profiling.span("vors.precompute", lanes=1):
-                    raw_kf = self._precompute(depth_map, pyr)
-                    self.keyframe_data = self._maybe_bucket(raw_kf)
+                with profiling.span("vors.precompute", lanes=1) as pre:
+                    launched = precompute_ops.lanes_launched()
+                    raw_kf, counts = self._precompute(depth_map, pyr)
+                    self.keyframe_data = self._maybe_bucket(raw_kf, counts)
+                    pre.count(kernel_lanes=precompute_ops.lanes_launched() - launched)
                 self.keyframe_depth_timestamp = depth_timestamp
                 self.keyframe_img_timestamp = img_timestamp
                 self.keyframe_pose = self.current_pose
@@ -918,15 +1037,18 @@ class Tracker:
         self.last_energy = float(host[2])
         self.relocalizations += 1
 
-    def _maybe_bucket(self, kf: KeyframeData) -> KeyframeData:
+    def _maybe_bucket(self, kf: KeyframeData, counts: torch.Tensor | None = None) -> KeyframeData:
         """Slice each level's candidates to the smallest power-of-two bucket
         >= its count (at least ``min_bucket``, at most the level cap).  Valid
         candidates are compacted to the front, so the slice keeps them all.
-        One host sync reads the counts of all levels."""
+        One host sync reads the counts of all levels: ``counts`` (L,) if the
+        precompute gave them, else the valid sums."""
         if not self.config.bucket_candidates:
             return kf
         with profiling.span("vors.read.bucket"):
-            counts = torch.stack([obs.valid.sum() for obs in kf.levels]).tolist()
+            if counts is None:
+                counts = torch.stack([obs.valid.sum() for obs in kf.levels])
+            counts = counts.tolist()
         levels = []
         for obs, count in zip(kf.levels, counts):
             bucket = max(self.config.min_bucket, 1 << (max(count, 1) - 1).bit_length())

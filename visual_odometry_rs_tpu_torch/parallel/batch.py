@@ -19,9 +19,11 @@ one level for all lanes, and the per-lane selects.  The host reads the
 device only where the semantics need it: the B-lane switch mask on a check
 frame, and the stacked poses and diagnostics once per clip
 (``outputs_to_numpy``, called by the caller).  On a check frame only the
-switching lanes are precomputed: they are picked with ``index_select`` and
-written back with ``index_copy``, which replaces the JAX package's one-hot
-lane moves and its ``switch_subbatch`` compaction.  Lanes never wait on each
+switching lanes are precomputed (``precompute_keyframe_into``): on a GPU the
+two precompute kernels read those lanes of the frame where they lie and
+write their keyframes into the clip's own copy of the batched keyframe,
+made at its first switch, which replaces the JAX package's one-hot lane
+moves and its ``switch_subbatch`` compaction.  Lanes never wait on each
 other: each lane's solve ends after its own iterations.
 
 With ``reloc_ring`` (a ``RelocRing``: each lane's last R keyframes on the
@@ -58,6 +60,7 @@ from ..math.pose import Pose
 from ..models import relocalize as reloc_mod
 from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
+from ..ops import precompute as precompute_ops
 from ..ops import pyramid as pyramid_ops
 from ..utils import profiling
 from ..utils.types import Float, depth_tensor, image_tensor, resolve_device, upload_clip
@@ -109,6 +112,10 @@ def _map_state(fn, state: TrackState) -> TrackState:
         keyframe_pose=Pose(*map(fn, state.keyframe_pose)),
         current_pose=Pose(*map(fn, state.current_pose)),
     )
+
+
+def _own_copy(x: torch.Tensor) -> torch.Tensor:
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _solved_pose(keyframe_pose: Pose, model: Pose) -> Pose:
@@ -376,6 +383,8 @@ def batched_track_sequence(
         intrinsics = intrinsics.to(device)
         vel = config.warm_start == "constant_velocity"
         kf, keyframe_pose, current = state
+        own_kf = False  # kf is this call's own copy, written in place, from the first switch on
+        levels = None  # the level intrinsics, computed at the first switch
         ring = None
         if reloc_on:  # this call's own copy, written in place
             ring = RelocRing(tracker_mod.map_keyframe(torch.clone, reloc_ring.kf),
@@ -408,13 +417,16 @@ def batched_track_sequence(
                     with profiling.span("vors.read.switch_mask"):
                         lanes = torch.nonzero(switch_mask.cpu()).flatten()  # the check frame's host read
                     if lanes.numel() > 0:
-                        with profiling.span("vors.precompute", lanes=lanes.numel()):
+                        with profiling.span("vors.precompute", lanes=lanes.numel()) as pre:
+                            launched = precompute_ops.lanes_launched()
                             idx = lanes.to(device)
-                            new_kf = tracker_mod.precompute_keyframe(
-                                config, intrinsics, depths[t].index_select(0, idx),
-                                [p.index_select(0, idx) for p in pyrs],
-                            )
-                            kf = tracker_mod.map_keyframe(lambda old, new: old.index_copy(0, idx, new), kf, new_kf)
+                            if not own_kf:  # the caller's keyframe is never written
+                                kf = tracker_mod.map_keyframe(_own_copy, kf)
+                                levels = tracker_mod.level_intrinsics(intrinsics, len(pyrs))
+                                own_kf = True
+                            tracker_mod.precompute_keyframe_into(
+                                config, intrinsics, depths[t], pyrs, idx, kf, levels=levels)
+                            pre.count(kernel_lanes=precompute_ops.lanes_launched() - launched)
                         keyframe_pose = _where_pose(switch_mask, new_current, keyframe_pose)
                         if reloc_on:
                             _ring_write(ring, idx, kf, new_current)
