@@ -984,12 +984,13 @@ def phase_precompute(config, intrinsics, depths, grays):
 
     pyr0 = pyramid.mean_pyramid(LEVELS, grays[0])
     caps = config.level_caps()
+    levels = tracker_mod.level_intrinsics(intrinsics, LEVELS)
     row = None
     for k in PRECOMPUTE_LANES:
         depth, pyr = depths[0, :k], [p[:k] for p in pyr0]
 
         def kernels():
-            return tracker_mod.precompute_keyframe_counts(config, intrinsics, depth, pyr)
+            return tracker_mod.precompute_keyframe_counts(config, levels, depth, pyr)
 
         def plain():
             return tracker_mod.precompute_keyframe_reference(config, intrinsics, depth, pyr)
@@ -1002,7 +1003,7 @@ def phase_precompute(config, intrinsics, depths, grays):
         k_ms = _time_ms(kernels, reps=20, warmup=3)
         p_ms = _time_ms(plain, reps=5, warmup=1)
         singles_ms = _time_ms(lambda: [tracker_mod.precompute_keyframe_counts(
-            config, intrinsics, depth[b], [p[b] for p in pyr]) for b in range(k)], reps=3, warmup=1)
+            config, levels, depth[b], [p[b] for p in pyr]) for b in range(k)], reps=3, warmup=1)
         maps_us = _device_us(kernels, "maps_kernel", reps=20)
         cand_us = _device_us(kernels, "candidates_kernel", reps=20)
         # the u8 pyramid and the int32 depth read once; the slots and the counts written once

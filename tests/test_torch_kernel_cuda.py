@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from visual_odometry_rs_tpu_torch.core import camera
 from visual_odometry_rs_tpu_torch.dataset import synthetic
 from visual_odometry_rs_tpu_torch.math import pose, se3
 from visual_odometry_rs_tpu_torch.models import tracker
@@ -119,6 +120,18 @@ def test_track_frame_through_kernel_matches_twin(cuda_device):
     np.testing.assert_allclose(out.model.t.cpu().numpy(), ref.model.t.numpy(), atol=5e-3)
     np.testing.assert_allclose(float(out.flow), float(ref.flow), rtol=0.15, atol=2e-2)
     assert (out.nb_evals > 0).all() and (out.nb_evals >= out.nb_iters).all()
+
+
+def test_track_frame_stacks_no_intrinsics_a_launch(cuda_device, monkeypatch):
+    """A frame's launches take the rows of one (L, 5) intrinsics table: no
+    ``Intrinsics.vector`` call, still one solver launch a level."""
+    config, kf, pyr1 = _keyframe(cuda_device)
+    vector, calls = camera.Intrinsics.vector, []
+    monkeypatch.setattr(camera.Intrinsics, "vector", lambda k: calls.append(k) or vector(k))
+    before = lm_solve.lm_solve_level.launches
+    out = tracker.track_frame(config, kf, pyr1, pose.identity(device=cuda_device))
+    assert lm_solve.lm_solve_level.launches - before == LEVELS
+    assert calls == [] and not bool(out.failed)
 
 
 def _assert_solves_match(out, ref):

@@ -1,10 +1,11 @@
-"""The keyframe precompute's dispatch on the CPU: ``precompute_keyframe``
-runs its plain version there, ``precompute_keyframe_reference``, bit for
-bit; ``precompute_keyframe_counts`` gives each level's valid count;
-``precompute_keyframe_into`` writes the picked lanes' rows and leaves the
-others; the kernels' launcher refuses CPU tensors.  The kernels themselves
-are held to the plain version on the card
-(``tests/test_torch_precompute_cuda.py``).  Small shapes, one thread.
+"""The keyframe precompute's one dispatch on the CPU:
+``precompute_keyframe_counts`` (and ``precompute_keyframe`` through it)
+runs the plain version there, ``precompute_keyframe_reference``, bit for
+bit, and gives each level's valid count; with ``lanes`` and ``into`` it
+writes the picked lanes' rows and leaves the others; the kernels' launcher
+refuses CPU tensors.  The kernels themselves are held to the plain version
+on the card (``tests/test_torch_precompute_cuda.py``).  Small shapes, one
+thread.
 """
 
 import numpy as np
@@ -45,7 +46,7 @@ def test_cpu_runs_the_reference(scene, selector):
     depth, pyr = torch.from_numpy(depths[0]), pyramid.mean_pyramid(LEVELS, torch.from_numpy(grays[0]))
     ref = tracker.precompute_keyframe_reference(config, intrinsics, depth, pyr)
     assert _equal(tracker.precompute_keyframe(config, intrinsics, depth, pyr), ref)
-    kf, counts = tracker.precompute_keyframe_counts(config, intrinsics, depth, pyr)
+    kf, counts = tracker.precompute_keyframe_counts(config, tracker.level_intrinsics(intrinsics, LEVELS), depth, pyr)
     assert _equal(kf, ref)
     assert counts.dtype == torch.int32 and counts.shape == (LANES, LEVELS)
     assert counts.tolist() == [[int(obs.valid[b].sum()) for obs in ref.levels] for b in range(LANES)]
@@ -63,10 +64,13 @@ def test_into_writes_the_picked_rows(scene):
     start = tracker.precompute_keyframe(config, intrinsics, torch.from_numpy(depths[0]), pyr0)
     kf = tracker.map_keyframe(torch.clone, start)
     lanes = torch.tensor([2, 0])
-    tracker.precompute_keyframe_into(config, intrinsics, torch.from_numpy(depths[1]), pyr1, lanes, kf)
+    out, counts = tracker.precompute_keyframe_counts(
+        config, tracker.level_intrinsics(intrinsics, LEVELS), torch.from_numpy(depths[1]), pyr1, lanes=lanes, into=kf)
     new = tracker.precompute_keyframe(config, intrinsics, torch.from_numpy(depths[1]), pyr1)
+    assert out is kf
     for b, src in enumerate((new, start, new)):  # rows 0 and 2 replaced, row 1 kept
         assert _equal(tracker.map_keyframe(lambda x: x[b], kf), tracker.map_keyframe(lambda x: x[b], src))
+    assert counts.tolist() == [[int(obs.valid[b].sum()) for obs in new.levels] for b in (2, 0)]
 
 
 def test_clip_leaves_the_callers_state(scene):

@@ -20,7 +20,6 @@ from visual_odometry_rs_tpu_torch.models import tracker
 from visual_odometry_rs_tpu_torch.ops import precompute as precompute_ops
 from visual_odometry_rs_tpu_torch.ops import pyramid
 from visual_odometry_rs_tpu_torch.parallel import batch
-from visual_odometry_rs_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -91,7 +90,7 @@ def test_kernels_match_reference(cuda_device, case):
                                    candidate_selector=selector, dso_target=800)
     intrinsics, depth, pyr = _inputs(cuda_device, height, width, lanes, levels, holes, lane_axis)
     before = precompute_ops.keyframe_levels.launches
-    kf, counts = tracker.precompute_keyframe_counts(config, intrinsics, depth, pyr)
+    kf, counts = tracker.precompute_keyframe_counts(config, tracker.level_intrinsics(intrinsics, levels), depth, pyr)
     assert precompute_ops.keyframe_levels.launches == before + 2
     ref = tracker.precompute_keyframe_reference(config, intrinsics, depth, pyr)
     torch.cuda.synchronize()
@@ -116,19 +115,25 @@ def test_given_finest_mask(cuda_device):
 @pytest.mark.parametrize("selector", ["coarse_to_fine", "dso_fixed"])
 def test_into_rows(cuda_device, selector):
     """Lanes precomputed into rows of a batched keyframe are what the
-    reference on the picked lanes and ``index_copy`` give; other rows stay."""
+    reference on the picked lanes and ``index_copy`` give; other rows stay.
+    Without ``into`` the picked lanes are the result."""
     config = tracker.TrackerConfig(height=240, width=320, nb_levels=5, candidate_cap=4096,
                                    candidate_selector=selector, dso_target=800)
     intrinsics, depth, pyr = _inputs(cuda_device, 240, 320, 9, 5)
     start = tracker.precompute_keyframe_reference(config, intrinsics, depth.flip(0), [p.flip(0) for p in pyr])
     lanes = torch.tensor([3, 0, 7], device=cuda_device)
     kf = tracker.map_keyframe(lambda x: x.clone(), start)
-    tracker.precompute_keyframe_into(config, intrinsics, depth, pyr, lanes, kf)
+    levels = tracker.level_intrinsics(intrinsics, 5)
+    _, counts = tracker.precompute_keyframe_counts(config, levels, depth, pyr, lanes=lanes, into=kf)
+    picked, picked_counts = tracker.precompute_keyframe_counts(config, levels, depth, pyr, lanes=lanes)
     new = tracker.precompute_keyframe_reference(
         config, intrinsics, depth.index_select(0, lanes), [p.index_select(0, lanes) for p in pyr])
     want = tracker.map_keyframe(lambda old, fresh: old.index_copy(0, lanes, fresh), start, new)
     torch.cuda.synchronize()
     _assert_keyframes_equal(kf, want)
+    _assert_keyframes_equal(picked, new)
+    want_counts = torch.stack([obs.valid.sum(dim=-1) for obs in new.levels], dim=-1).to(torch.int32)
+    assert torch.equal(counts, want_counts) and torch.equal(picked_counts, want_counts)
 
 
 def _leaves(tree):
@@ -137,12 +142,18 @@ def _leaves(tree):
     return [leaf for sub in tree for leaf in _leaves(sub)]
 
 
-def _twin_into(config, intrinsics, depth_map, img_pyramid, lanes, kf, levels=None):
-    new = tracker.precompute_keyframe_reference(
-        config, intrinsics, depth_map.index_select(0, lanes), [p.index_select(0, lanes) for p in img_pyramid])
-    for old, fresh in zip(kf.levels, new.levels):
+def _twin_counts(config, levels, depth_map, img_pyramid, finest_mask=None, *, lanes=None, into=None):
+    """``precompute_keyframe_counts`` with the plain version forced."""
+    if lanes is not None:
+        depth_map, img_pyramid = depth_map.index_select(0, lanes), [p.index_select(0, lanes) for p in img_pyramid]
+    kf = tracker.precompute_keyframe_reference(config, levels[0][0], depth_map, img_pyramid, finest_mask)
+    counts = torch.stack([obs.valid.sum(dim=-1) for obs in kf.levels], dim=-1).to(torch.int32)
+    if into is None:
+        return kf, counts
+    for old, fresh in zip(into.levels, kf.levels):
         for f in FIELDS:
             getattr(old, f).index_copy_(0, lanes, getattr(fresh, f))
+    return into, counts
 
 
 @pytest.mark.parametrize("selector", ["coarse_to_fine", "dso_fixed"])
@@ -171,8 +182,7 @@ def test_clip_matches_twin(cuda_device, monkeypatch, selector):
     before = precompute_ops.keyframe_levels.launches
     final, poses, diags = run()
     assert precompute_ops.keyframe_levels.launches > before + 2
-    monkeypatch.setattr(tracker, "precompute_keyframe", tracker.precompute_keyframe_reference)
-    monkeypatch.setattr(tracker, "precompute_keyframe_into", _twin_into)
+    monkeypatch.setattr(tracker, "precompute_keyframe_counts", _twin_counts)
     before = precompute_ops.keyframe_levels.launches
     final_ref, poses_ref, diags_ref = run()
     assert precompute_ops.keyframe_levels.launches == before
@@ -193,34 +203,3 @@ def test_bucketed_tracker(cuda_device):
     ref = tracker.precompute_keyframe_reference(
         config, trk.intrinsics, torch.from_numpy(seq.depths[0].astype(np.int32)).to(cuda_device), pyr)
     _assert_keyframes_equal(trk.keyframe_data, trk._maybe_bucket(ref))
-
-
-def test_spans_count_kernel_lanes(cuda_device, monkeypatch):
-    """``kernel_lanes`` of each ``vors.precompute`` span is what the launcher
-    counted across the span: its ``lanes`` through the kernels, 0 with the
-    plain version forced."""
-    height, width, lanes = 120, 160, 4
-    config = tracker.TrackerConfig(height=height, width=width, nb_levels=4, candidate_cap=1024, flow_threshold=0.2)
-    seqs = [synthetic.generate_sequence(nb_frames=6, height=height, width=width, seed=40 + b,
-                                        motion_scale=0.02 * (b + 1)) for b in range(lanes)]
-    depths = np.stack([np.stack([s.depths[f] for s in seqs]) for f in range(6)])
-    grays = np.stack([np.stack([s.grays[f] for s in seqs]) for f in range(6)])
-
-    def spans():
-        profiling.clear()
-        with profiling.recording():
-            state = batch.batched_init_state(config, seqs[0].intrinsics, depths[0], grays[0], device=cuda_device)
-            batch.batched_track_sequence(config, seqs[0].intrinsics, state, depths[1:], grays[1:])
-            trk = tracker.init_tracker(config, seqs[0].intrinsics, 0.0, seqs[0].depths[0], 0.0, seqs[0].grays[0],
-                                       device=cuda_device)
-            for f in range(1, 6):
-                trk.track(float(f), seqs[0].depths[f], float(f), seqs[0].grays[f])
-        return [s.counts for s in profiling.spans() if s.name == "vors.precompute"]
-
-    counts = spans()
-    assert len(counts) >= 2 and all(c["kernel_lanes"] == c["lanes"] > 0 for c in counts)
-    monkeypatch.setattr(tracker, "precompute_keyframe_counts", lambda config, intrinsics, depth, pyr, **kw: (
-        tracker.precompute_keyframe_reference(config, intrinsics, depth, pyr, kw.get("finest_mask")), None))
-    monkeypatch.setattr(tracker, "precompute_keyframe_into", _twin_into)
-    counts = spans()
-    assert len(counts) >= 2 and all(c["kernel_lanes"] == 0 and c["lanes"] > 0 for c in counts)

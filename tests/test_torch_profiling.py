@@ -134,7 +134,7 @@ def test_track_span_tree(clean, seq, threshold):
     assert all(s.id == 2 for s in records)
     if switched:
         pre = kids[root.serial][3]
-        assert pre.counts == {"lanes": 1, "kernel_lanes": 0}  # the CPU runs the plain version
+        assert pre.counts == {"lanes": 1}
         assert [(s.name, s.counts) for s in kids[pre.serial]] == [
             ("vors.upload", {"bytes": seq.depths[2].nbytes}), ("vors.read.bucket", {})]
     assert len(records) == 4 + 3 * switched
@@ -162,7 +162,7 @@ def test_clip_span_tree(clean, seq):
     for t, step in enumerate(kids[clip.serial][1:]):
         steps = [(s.name, s.id, s.counts) for s in kids[step.serial]]
         assert steps == [("vors.solve", 5 + t, {}), ("vors.read.switch_mask", 5 + t, {})] + (
-            [("vors.precompute", 5, {"lanes": 1, "kernel_lanes": 0})] if t == 0 else [])
+            [("vors.precompute", 5, {"lanes": 1})] if t == 0 else [])
 
 
 def test_busy_time_counts_overlapping_intervals_once():

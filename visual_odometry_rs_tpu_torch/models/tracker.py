@@ -247,78 +247,87 @@ def precompute_keyframe(
     shared intrinsics carries it too, (K, N, …), bit-equal to K one-lane
     calls.  ``finest_mask`` replaces the level-0 candidate selection: it
     carries the ``dso`` selector's mask, whose host recursion cannot run
-    here (``dso_mask``).
-
-    CPU tensors take ``precompute_keyframe_reference``; CUDA tensors the two
-    kernels of ``ops.precompute`` (the intrinsics on the same device), whose
-    every leaf is the reference's bits.
+    here (``dso_mask``).  The keyframe of ``precompute_keyframe_counts``,
+    which picks the kernels or the plain version by the device.
     """
-    if depth_map.device.type == "cpu":
-        return precompute_keyframe_reference(config, intrinsics, depth_map, img_pyramid, finest_mask)
-    return _precompute_kernels(config, intrinsics, depth_map, img_pyramid, finest_mask)[0]
+    levels = level_intrinsics(intrinsics, len(img_pyramid))
+    return precompute_keyframe_counts(config, levels, depth_map, img_pyramid, finest_mask)[0]
 
 
 def precompute_keyframe_counts(
     config: TrackerConfig,
-    intrinsics: Intrinsics,
+    levels: Tuple[List[Intrinsics], torch.Tensor],
     depth_map: torch.Tensor,
     img_pyramid: List[torch.Tensor],
     finest_mask: torch.Tensor | None = None,
-    levels=None,
+    *,
+    lanes: torch.Tensor | None = None,
+    into: KeyframeData | None = None,
 ) -> Tuple[KeyframeData, torch.Tensor]:
-    """``precompute_keyframe`` and the valid candidates of each level, (…, L)
-    int32 on the device: on CUDA the counts the candidate kernel writes
-    beside the slots, so reading them launches nothing.  ``levels``, the
-    ``level_intrinsics`` of ``intrinsics``, spares a caller that precomputes
-    many keyframes computing them each time (the CPU path ignores it)."""
-    if depth_map.device.type == "cpu":
-        kf = precompute_keyframe_reference(config, intrinsics, depth_map, img_pyramid, finest_mask)
-        return kf, torch.stack([obs.valid.sum(dim=-1) for obs in kf.levels], dim=-1).to(torch.int32)
-    return _precompute_kernels(config, intrinsics, depth_map, img_pyramid, finest_mask, levels)
+    """``precompute_keyframe`` of the intrinsics whose ``level_intrinsics``
+    are ``levels`` (a caller that precomputes many keyframes computes them
+    once), and the valid candidates of each level, (…, L) int32 on the
+    device: on CUDA the counts the candidate kernel writes beside the
+    slots, so reading them launches nothing.
 
+    ``lanes`` ((K,) int64 on the device) picks lanes of a batch, depth
+    (B, H, W) and pyramid levels (B, h, w): the result is the keyframe of
+    those K lanes (``finest_mask`` (K, H, W) if given).  With ``into``, a
+    batched keyframe, lane ``lanes[k]`` goes into row ``lanes[k]`` of every
+    lane field of ``into``, the template included, in place, and ``into``
+    is returned: what ``index_copy(0, lanes, …)`` of the picked lanes'
+    keyframe gives.
 
-def precompute_keyframe_into(
-    config: TrackerConfig,
-    intrinsics: Intrinsics,
-    depth_map: torch.Tensor,
-    img_pyramid: List[torch.Tensor],
-    lanes: torch.Tensor,
-    kf: KeyframeData,
-    levels=None,
-) -> None:
-    """Precompute lanes ``lanes`` ((K,) int64 on the device) of a batch,
-    depth (B, H, W) and pyramid levels (B, h, w), into rows ``lanes`` of the
-    batched keyframe ``kf``, in place: every lane field, the template
-    included, gets what ``index_copy(0, lanes, …)`` of ``precompute_keyframe``
-    of the picked lanes gives.  On CUDA the two kernels read the lanes where
-    they lie and write the rows themselves; on the CPU the reference runs on
-    the picked lanes and ``index_copy_`` writes them.  ``levels`` as for
-    ``precompute_keyframe_counts``."""
+    CPU tensors take ``precompute_keyframe_reference`` of the picked lanes
+    (then ``index_copy_``); CUDA tensors the two kernels of
+    ``ops.precompute`` (the intrinsics on the same device), which read the
+    picked lanes where they lie and write ``into``'s rows themselves, and
+    whose every leaf is the reference's bits.
+    """
+    intr_levels, table = levels
     if depth_map.device.type == "cpu":
-        new = precompute_keyframe_reference(
-            config, intrinsics, depth_map.index_select(0, lanes), [p.index_select(0, lanes) for p in img_pyramid]
-        )
-        for old, fresh in zip(kf.levels, new.levels):
+        if lanes is not None:
+            depth_map, img_pyramid = depth_map.index_select(0, lanes), [p.index_select(0, lanes) for p in img_pyramid]
+        kf = precompute_keyframe_reference(config, intr_levels[0], depth_map, img_pyramid, finest_mask)
+        counts = torch.stack([obs.valid.sum(dim=-1) for obs in kf.levels], dim=-1).to(torch.int32)
+        if into is None:
+            return kf, counts
+        for old, fresh in zip(into.levels, kf.levels):
             for f in LANE_FIELDS:
                 getattr(old, f).index_copy_(0, lanes, getattr(fresh, f))
-        return
-    mask = None
-    if config.candidate_selector != "coarse_to_fine":
-        mask = _selector_mask(config, img_pyramid[0].index_select(0, lanes))
-    precompute_ops.keyframe_levels(
-        img_pyramid, depth_map, (levels or level_intrinsics(intrinsics, len(img_pyramid)))[1],
-        config.level_caps(), finest_mask=mask, lanes=lanes,
-        into=[(obs.xs, obs.ys, obs.idepth, obs.valid, obs.tmpl_vals, obs.jacobians, obs.template)
-              for obs in kf.levels],
+        return into, counts
+    if finest_mask is None and config.candidate_selector != "coarse_to_fine":
+        finest_mask = _selector_mask(config, img_pyramid[0] if lanes is None else img_pyramid[0].index_select(0, lanes))
+    if finest_mask is not None:
+        lead = depth_map.shape[:-2] if lanes is None else lanes.shape
+        finest_mask = torch.broadcast_to(finest_mask, (*lead, *depth_map.shape[-2:])).to(torch.bool).contiguous()
+    out = precompute_ops.keyframe_levels(
+        img_pyramid, depth_map, table, config.level_caps(), finest_mask=finest_mask, lanes=lanes,
+        into=None if into is None else [
+            (obs.xs, obs.ys, obs.idepth, obs.valid, obs.tmpl_vals, obs.jacobians, obs.template)
+            for obs in into.levels],
         **_kernel_settings(config),
     )
+    if into is not None:
+        return into, out
+    fields, counts = out
+    if lanes is not None:
+        img_pyramid = [p.index_select(0, lanes) for p in img_pyramid]
+    return KeyframeData(levels=tuple(
+        LevelObs(k, img, *f) for k, img, f in zip(intr_levels, img_pyramid, fields)
+    )), counts
 
 
 def level_intrinsics(intrinsics: Intrinsics, nb_levels: int) -> Tuple[List[Intrinsics], torch.Tensor]:
     """``camera.multi_res`` of the intrinsics, and the same levels as one
     (L, 5) tensor ``[cx cy fx fy skew]``: the precompute kernels' input."""
     levels = camera_mod.multi_res(intrinsics, nb_levels)
-    return levels, torch.stack([k.vector() for k in levels])
+    return levels, _intrinsics_table(levels)
+
+
+def _intrinsics_table(levels: List[Intrinsics]) -> torch.Tensor:
+    """The (L, 5) rows ``[cx cy fx fy skew]`` of ``levels``, in one stack."""
+    return torch.stack([x for k in levels for x in k]).view(-1, 5)
 
 
 def _kernel_settings(config: TrackerConfig) -> dict:
@@ -345,22 +354,6 @@ def _selector_mask(config: TrackerConfig, image0: torch.Tensor) -> torch.Tensor 
     if selector != "coarse_to_fine":
         raise ValueError(f"unknown candidate_selector {selector!r}")
     return None
-
-
-def _precompute_kernels(config, intrinsics, depth_map, img_pyramid, finest_mask, levels=None):
-    """``precompute_keyframe_counts`` on CUDA tensors: two launches."""
-    intr_levels, table = levels or level_intrinsics(intrinsics, len(img_pyramid))
-    if finest_mask is None:
-        finest_mask = _selector_mask(config, img_pyramid[0])
-    if finest_mask is not None:
-        finest_mask = torch.broadcast_to(finest_mask, depth_map.shape).to(torch.bool).contiguous()
-    fields, counts = precompute_ops.keyframe_levels(
-        img_pyramid, depth_map, table, config.level_caps(), finest_mask=finest_mask,
-        **_kernel_settings(config),
-    )
-    return KeyframeData(levels=tuple(
-        LevelObs(k, img, *f) for k, img, f in zip(intr_levels, img_pyramid, fields)
-    )), counts
 
 
 def precompute_keyframe_reference(
@@ -577,10 +570,12 @@ def solve_level_brightness_reference(
     )
 
 
-def _launch_level(obs: LevelObs, image, state_in, record, **kwargs):
+def _launch_level(obs: LevelObs, intrinsics: torch.Tensor, image, state_in, record, **kwargs):
+    """One ``lm_solve_level`` launch of level ``obs``, whose intrinsics are the
+    (5,) row ``intrinsics``."""
     return lm_solve.lm_solve_level(
         image, obs.xs, obs.ys, obs.idepth, obs.tmpl_vals, obs.valid, obs.jacobians,
-        obs.intrinsics.vector(), state_in, record, **kwargs,
+        intrinsics, state_in, record, **kwargs,
     )
 
 
@@ -611,7 +606,7 @@ def _solve_launch(obs, image, state_in, brightness: bool, **kwargs):
     """One ``lm_solve_level`` launch of one level: (record, nb_iter,
     failed), the counts as 0-d device tensors."""
     record = torch.empty((lm_solve.RECORD_SIZE,), dtype=Float, device=image.device)
-    _launch_level(obs, image, state_in, record, brightness=brightness, **kwargs)
+    _launch_level(obs, obs.intrinsics.vector(), image, state_in, record, brightness=brightness, **kwargs)
     return record, record[lm_solve.NB_ITER].to(torch.int32), record[lm_solve.FAILED] != 0
 
 
@@ -733,9 +728,11 @@ def _track_frame_kernel(config, kf, img_pyramid, init_model, detector, image_ind
     """Coarse-to-fine ``lm_solve_level``: one launch per level for all lanes,
     each reading its start state (pose, failed-so-far flag, brightness) from
     the record of the level before; the finest level's launch also computes
-    the flow and, with ``detector``, the lost-frame detector.  No host
-    read."""
+    the flow and, with ``detector``, the lost-frame detector.  The levels'
+    intrinsics reach the launches as rows of one (L, 5) table, one stack a
+    frame.  No host read."""
     lead = init_model.q.shape[:-1]
+    table = _intrinsics_table([obs.intrinsics for obs in kf.levels])
     records = torch.empty(
         (config.nb_levels, *lead, lm_solve.RECORD_SIZE), dtype=Float, device=init_model.q.device
     )
@@ -744,9 +741,9 @@ def _track_frame_kernel(config, kf, img_pyramid, init_model, detector, image_ind
     for lvl in reversed(range(config.nb_levels)):
         flow_of = None
         if lvl == 0:  # the last launch: its handed-on pose is the frame's
-            flow_of = (coarse.xs, coarse.ys, coarse.idepth, coarse.valid, coarse.intrinsics.vector())
+            flow_of = (coarse.xs, coarse.ys, coarse.idepth, coarse.valid, table[-1])
         _launch_level(
-            kf.levels[lvl], img_pyramid[lvl], state, records[lvl], flow_of=flow_of,
+            kf.levels[lvl], table[lvl], img_pyramid[lvl], state, records[lvl], flow_of=flow_of,
             brightness=config.brightness_model, detector=detector and lvl == 0,
             image_index=image_index, active=active, **_level_kwargs(config, lvl),
         )
@@ -941,8 +938,7 @@ class Tracker:
         mask = dso_mask(self.config, pyr[0]) if self.config.candidate_selector == "dso" else None
         with profiling.span("vors.upload", bytes=depth_map.nbytes):
             depth = depth_tensor(depth_map, self.device)
-        return precompute_keyframe_counts(self.config, self.intrinsics, depth, pyr, finest_mask=mask,
-                                          levels=self._levels)
+        return precompute_keyframe_counts(self.config, self._levels, depth, pyr, finest_mask=mask)
 
     def track(self, depth_timestamp: float, depth_map, img_timestamp: float, img) -> None:
         """Track one frame (inverse_compositional.rs:170-240)."""
@@ -995,11 +991,9 @@ class Tracker:
 
             if self.last_flow >= config.flow_threshold:
                 frame_span.count(switched=1)
-                with profiling.span("vors.precompute", lanes=1) as pre:
-                    launched = precompute_ops.lanes_launched()
+                with profiling.span("vors.precompute", lanes=1):
                     raw_kf, counts = self._precompute(depth_map, pyr)
                     self.keyframe_data = self._maybe_bucket(raw_kf, counts)
-                    pre.count(kernel_lanes=precompute_ops.lanes_launched() - launched)
                 self.keyframe_depth_timestamp = depth_timestamp
                 self.keyframe_img_timestamp = img_timestamp
                 self.keyframe_pose = self.current_pose

@@ -11,15 +11,14 @@ warp Jacobians.  The JAX package computes the same with XLA operations
 
 The launcher takes CUDA tensors only.  Its plain version is
 ``models.tracker.precompute_keyframe_reference``;
-``models.tracker.precompute_keyframe`` picks between the two by the tensors'
-device, with no fallback.  Every output is the plain version's bits.
+``models.tracker.precompute_keyframe_counts`` picks between the two by the
+tensors' device, with no fallback.  Every output is the plain version's bits.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import List, Sequence, Tuple
 
 import torch
@@ -29,7 +28,6 @@ from . import build, residual
 
 CHUNK = 128  # pixels of a chunk of a level's flat index (``tracker._EXTRACT_CHUNK``)
 FIELDS = ("xs", "ys", "idepth", "valid", "tmpl_vals", "jacobians")
-_launched = threading.local()  # this thread's lanes through the kernels
 
 
 class _Level(ctypes.Structure):
@@ -110,8 +108,7 @@ def keyframe_levels(
     ``(xs, ys, idepth, valid, tmpl_vals, jacobians, template)`` of (D, …)
     tensors, lane ``lanes[k]`` is written into row ``lanes[k]`` of each,
     the level's image included, in place, and only the counts are
-    returned.  ``keyframe_levels.launches`` counts launches, and
-    ``lanes_launched`` the calling thread's lanes.
+    returned.  ``keyframe_levels.launches`` counts launches.
     """
     device = depth.device
     if device.type != "cuda":
@@ -148,7 +145,8 @@ def keyframe_levels(
     p.levels, p.lanes = nb_levels, nb
     p.depth = depth.data_ptr()
     p.finest_mask = None if finest_mask is None else finest_mask.data_ptr()
-    p.src_lane = p.dst_lane = None if lanes is None else lanes.data_ptr()
+    p.src_lane = None if lanes is None else lanes.data_ptr()
+    p.dst_lane = None if into is None else lanes.data_ptr()  # without into, lane k is row k of the result
     p.scale, p.variance, p.threshold = scale, variance, threshold
     p.intrinsics = intrinsics.data_ptr()
 
@@ -202,15 +200,7 @@ def keyframe_levels(
             raise RuntimeError(f"keyframe precompute kernel launch failed: CUDA error {err}")
         with residual.COUNT_LOCK:
             keyframe_levels.launches += 2
-        _launched.lanes = lanes_launched() + nb
     return counts if into is not None else (outs, counts)
 
 
 keyframe_levels.launches = 0
-
-
-def lanes_launched() -> int:
-    """Lanes that the calling thread has sent through the kernels: a span
-    reads the change across its body (the mesh's device threads each count
-    their own)."""
-    return getattr(_launched, "lanes", 0)

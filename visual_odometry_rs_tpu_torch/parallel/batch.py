@@ -19,12 +19,13 @@ one level for all lanes, and the per-lane selects.  The host reads the
 device only where the semantics need it: the B-lane switch mask on a check
 frame, and the stacked poses and diagnostics once per clip
 (``outputs_to_numpy``, called by the caller).  On a check frame only the
-switching lanes are precomputed (``precompute_keyframe_into``): on a GPU the
-two precompute kernels read those lanes of the frame where they lie and
-write their keyframes into the clip's own copy of the batched keyframe,
-made at its first switch, which replaces the JAX package's one-hot lane
-moves and its ``switch_subbatch`` compaction.  Lanes never wait on each
-other: each lane's solve ends after its own iterations.
+switching lanes are precomputed (``precompute_keyframe_counts`` with
+``lanes`` and ``into``): on a GPU the two precompute kernels read those
+lanes of the frame where they lie and write their keyframes into the
+clip's own copy of the batched keyframe, made at its first switch, which
+replaces the JAX package's one-hot lane moves and its ``switch_subbatch``
+compaction.  Lanes never wait on each other: each lane's solve ends after
+its own iterations.
 
 With ``reloc_ring`` (a ``RelocRing``: each lane's last R keyframes on the
 device) every frame also runs the lost-frame detector in the finest
@@ -60,7 +61,6 @@ from ..math.pose import Pose
 from ..models import relocalize as reloc_mod
 from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
-from ..ops import precompute as precompute_ops
 from ..ops import pyramid as pyramid_ops
 from ..utils import profiling
 from ..utils.types import Float, depth_tensor, image_tensor, resolve_device, upload_clip
@@ -417,16 +417,13 @@ def batched_track_sequence(
                     with profiling.span("vors.read.switch_mask"):
                         lanes = torch.nonzero(switch_mask.cpu()).flatten()  # the check frame's host read
                     if lanes.numel() > 0:
-                        with profiling.span("vors.precompute", lanes=lanes.numel()) as pre:
-                            launched = precompute_ops.lanes_launched()
+                        with profiling.span("vors.precompute", lanes=lanes.numel()):
                             idx = lanes.to(device)
                             if not own_kf:  # the caller's keyframe is never written
                                 kf = tracker_mod.map_keyframe(_own_copy, kf)
                                 levels = tracker_mod.level_intrinsics(intrinsics, len(pyrs))
                                 own_kf = True
-                            tracker_mod.precompute_keyframe_into(
-                                config, intrinsics, depths[t], pyrs, idx, kf, levels=levels)
-                            pre.count(kernel_lanes=precompute_ops.lanes_launched() - launched)
+                            tracker_mod.precompute_keyframe_counts(config, levels, depths[t], pyrs, lanes=idx, into=kf)
                         keyframe_pose = _where_pose(switch_mask, new_current, keyframe_pose)
                         if reloc_on:
                             _ring_write(ring, idx, kf, new_current)
