@@ -370,67 +370,174 @@ UPLOAD_LAYOUTS = {"contiguous": lambda x: x, "lane_slice": lambda x: x[:, 1:3]} 
 @pytest.mark.parametrize("kind", ["numpy", "tensor"])
 @pytest.mark.parametrize("layout", sorted(UPLOAD_LAYOUTS))
 def test_staged_clip_upload_is_the_pageable_upload(cuda_device, layout, kind):
-    """``upload_clip`` stages a host clip through page-locked blocks and
-    widens depth on the card: the int32 depth (every u16 value) and the u8
-    images equal ``depth_tensor``/``image_tensor``'s pageable upload."""
-    from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor, upload_clip
+    """``upload_clip`` stages a host clip's images through a page-locked
+    block and leaves its depth maps on the host, on the caller's memory;
+    ``upload_lanes`` sends a frame's picked lanes through a page-locked block
+    and widens them on the card.  The u8 images and the int32 rows that
+    cross (every u16 value) equal ``image_tensor``/``depth_tensor``'s
+    pageable upload, no other row is written, and a second clip allocates
+    no page-locked memory.  Inputs on the card, and negative strides, go
+    whole through the pageable converters."""
+    from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor, upload_clip, upload_lanes
 
     rng = np.random.default_rng(13)
     depths = rng.integers(0, 1 << 16, (2, 4, 256, 256), dtype=np.uint16)
     depths[0, 1] = np.arange(1 << 16, dtype=np.uint16).reshape(256, 256)
     imgs = rng.integers(0, 1 << 8, depths.shape, dtype=np.uint8)
     depths, imgs = UPLOAD_LAYOUTS[layout](depths), UPLOAD_LAYOUTS[layout](imgs)
+    address = depths.ctypes.data
     if kind == "tensor":
         depths, imgs = torch.from_numpy(depths), torch.from_numpy(imgs)
+    frame = depths.shape[1:]
+    row_bytes = 2 * frame[1] * frame[2]
     allocs = []
     for _ in range(2):
         got_d, got_i, staged = upload_clip(depths, imgs, cuda_device)
-        assert staged == depths.nbytes + imgs.nbytes
-        assert (got_d.dtype, got_i.dtype, got_d.device.type) == (torch.int32, torch.uint8, "cuda")
-        assert torch.equal(got_d, depth_tensor(depths, cuda_device))
+        assert staged == imgs.nbytes
+        assert (got_d.dtype, got_d.device.type, got_d.data_ptr()) == (torch.uint16, "cpu", address)
+        assert (got_i.dtype, got_i.device.type) == (torch.uint8, "cuda")
         assert torch.equal(got_i, image_tensor(imgs, cuda_device))
+        block = torch.empty(frame, dtype=torch.uint16, pin_memory=True)
+        rows = torch.full(frame, -1, dtype=torch.int32, device=cuda_device)
+        every = torch.arange(frame[0] - 1, -1, -1)  # every lane, in reverse
+        assert upload_lanes(got_d[0], every, rows, block) == frame[0] * row_bytes
+        assert torch.equal(rows, depth_tensor(depths[0], cuda_device))
+        assert rows.unique().numel() == 1 << 16  # every u16 value, lane 1 in both layouts
+        one = torch.full(frame, -1, dtype=torch.int32, device=cuda_device)
+        assert upload_lanes(got_d[1], torch.tensor([1]), one, block) == row_bytes  # the same block again
+        assert torch.equal(one[1], depth_tensor(depths[1, 1], cuda_device))
+        assert bool((one[0] == -1).all()) and bool((one[2:] == -1).all())
+        del block  # freed, as batched_track_sequence frees its block at the end of a clip
         torch.cuda.synchronize()
         allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
     assert allocs[1] == allocs[0]  # the second clip reused the first one's page-locked blocks
-    assert torch.equal(got_d.cpu(), torch.from_numpy(np.asarray(depths).astype(np.int32)))
-    assert got_d.unique().numel() == 1 << 16  # every u16 value, lane 1 in both layouts
-    on_card = upload_clip(got_d, got_i, cuda_device)  # already there: nothing staged
-    assert on_card[2] == 0 and torch.equal(on_card[0], got_d) and torch.equal(on_card[1], got_i)
+    on_card = upload_clip(depth_tensor(depths, cuda_device), got_i, cuda_device)  # already there: nothing staged
+    assert on_card[2] == 0 and torch.equal(on_card[0], depth_tensor(depths, cuda_device))
+    assert on_card[0].dtype == torch.int32 and torch.equal(on_card[1], got_i)
+    if kind == "numpy":  # negative strides: the whole clip, pageable
+        rev_d, rev_i, rev_staged = upload_clip(depths[::-1], imgs[::-1], cuda_device)
+        assert rev_staged == 0 and torch.equal(rev_d, depth_tensor(depths[::-1], cuda_device))
+        assert torch.equal(rev_i, image_tensor(imgs[::-1], cuda_device))
 
 
-def test_staged_clip_tracks_as_the_pageable_clip(cuda_device):
-    """A lane-sliced host clip through ``batched_track_sequence`` (staged)
-    gives the poses and diagnostics of the same clip uploaded first by the
-    pageable converters, bit for bit; its ``vors.upload`` span counts the
-    staged bytes."""
+STAGED_CASES = {  # (TrackerConfig options, batched_track_sequence options)
+    "cadence1": ({}, {}),
+    "cadence4": ({}, dict(switch_cadence=4, frame_offset=2)),  # check frames 1 (no switch) and 5
+    "ring": (dict(relocalize_window=3), dict(switch_cadence=2)),
+}
+
+
+def _staged_clip_lanes(frames=9):
+    """Four synthetic lanes at four speeds, (F, 4, H, W) host stacks."""
+    seqs = [synthetic.generate_sequence(nb_frames=frames, height=H, width=W, seed=s,
+                                        twist_per_frame=[speed, 0.0, 0.0, 0.0, 0.0, 0.0])
+            for s, speed in enumerate((0.02, 0.01, 0.03, 0.04))]
+    depths = np.stack([np.stack([s.depths[f] for s in seqs]) for f in range(frames)])
+    grays = np.stack([np.stack([s.grays[f] for s in seqs]) for f in range(frames)])
+    return seqs[0].intrinsics, depths, grays
+
+
+def _same_bits(a, b) -> bool:
+    """Equal bit for bit, NaNs included (every float of the port is f32)."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def _assert_keyframes_equal(kf, ref):
+    for level, ref_level in zip(kf.levels, ref.levels):
+        for f in tracker.LANE_FIELDS:
+            assert _same_bits(getattr(level, f), getattr(ref_level, f)), f
+
+
+def _assert_clip_outputs_equal(got, ref):
+    """Final state, poses, diagnostics and (third, if there) ring, bit for bit."""
+    assert len(got) == len(ref)
+    (poses, diags), (ref_poses, ref_diags) = got[1], ref[1]
+    for a, b in zip((*poses, *diags, *got[0].current_pose, *got[0].keyframe_pose),
+                    (*ref_poses, *ref_diags, *ref[0].current_pose, *ref[0].keyframe_pose)):
+        assert _same_bits(a, b)
+    _assert_keyframes_equal(got[0].kf, ref[0].kf)
+    if len(got) > 2:
+        _assert_keyframes_equal(got[2].kf, ref[2].kf)
+        assert all(_same_bits(a, b) for a, b in zip(got[2][1:], ref[2][1:]))
+
+
+@pytest.mark.parametrize("case", sorted(STAGED_CASES))
+def test_staged_clip_tracks_as_the_pageable_clip(cuda_device, case):
+    """A lane-sliced host clip through ``batched_track_sequence`` (images
+    staged, each check frame's switching lanes' depth sent then) gives the
+    poses, diagnostics and ring of the same clip uploaded first by the
+    pageable converters, bit for bit.  Its ``vors.upload`` spans stage the
+    images' bytes and one depth row a switched lane-frame, each check frame's
+    between the switch mask's read and the precompute; a check frame with no
+    switch sends nothing; a second clip allocates no page-locked memory."""
     from visual_odometry_rs_tpu_torch.parallel import batch
     from visual_odometry_rs_tpu_torch.utils import profiling
     from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor
 
-    seqs = [synthetic.generate_sequence(nb_frames=5, height=H, width=W, seed=s,
-                                        twist_per_frame=[0.02 * (s + 1), 0.0, 0.0, 0.0, 0.0, 0.0])
-            for s in range(4)]
-    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
-    intr = seqs[0].intrinsics
-    clip_d = np.stack([np.stack([s.depths[f] for s in seqs]) for f in range(5)])[:, 1:3]
-    clip_g = np.stack([np.stack([s.grays[f] for s in seqs]) for f in range(5)])[:, 1:3]
+    config_kw, kwargs = STAGED_CASES[case]
+    intr, depths, grays = _staged_clip_lanes()
+    clip_d, clip_g = depths[:, 1:3], grays[:, 1:3]  # shard_batch's view for the second of two devices
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP, **config_kw)
     state = batch.batched_init_state(config, intr, clip_d[0], clip_g[0], device=cuda_device)
+    if config.relocalize_window:
+        kwargs = dict(kwargs, reloc_ring=batch.batched_init_ring(config, state))
     pageable = batch.batched_track_sequence(config, intr, state, depth_tensor(clip_d[1:], cuda_device),
-                                            image_tensor(clip_g[1:], cuda_device))
+                                            image_tensor(clip_g[1:], cuda_device), **kwargs)
+    allocs = []
     profiling.clear()
     try:
-        with profiling.recording():
-            staged = batch.batched_track_sequence(config, intr, state, clip_d[1:], clip_g[1:])
-        (upload,) = [s for s in profiling.spans() if s.name == "vors.upload"]
+        for _ in range(2):
+            with profiling.recording():
+                staged = batch.batched_track_sequence(config, intr, state, clip_d[1:], clip_g[1:], **kwargs)
+            torch.cuda.synchronize()
+            allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
+            _assert_clip_outputs_equal(staged, pageable)
+        records = profiling.spans()
     finally:
         profiling.clear()
-    nbytes = clip_d[1:].nbytes + clip_g[1:].nbytes
-    assert upload.counts == {"bytes": nbytes, "staged": nbytes}
-    (poses, diags), (ref_poses, ref_diags) = staged[1], pageable[1]
-    assert torch.equal(poses.q, ref_poses.q) and torch.equal(poses.t, ref_poses.t)
-    for got, ref in zip(diags, ref_diags):
-        assert torch.equal(got, ref)
-    assert bool(diags.switched.any())
+    assert allocs[1] == allocs[0]
+    switched = staged[1][1].switched.cpu()
+    cadence, offset = kwargs.get("switch_cadence", 1), kwargs.get("frame_offset", 0)
+    checks = [t for t in range(switched.shape[0]) if (offset + t + 1) % cadence == 0]
+    assert bool(switched.any()) and not all(bool(switched[t].any()) for t in checks)
+    kids = {}
+    for s in records:
+        kids.setdefault(s.parent, []).append(s)
+    clip = kids[None][-1]  # the second clip's root span
+    first, *steps = kids[clip.serial]
+    assert first.name == "vors.upload" and first.counts == {"bytes": clip_g[1:].nbytes, "staged": clip_g[1:].nbytes}
+    uploads = [first] + [s for step in steps for s in kids[step.serial] if s.name == "vors.upload"]
+    row_bytes = 2 * H * W
+    assert sum(s.counts["staged"] for s in uploads) == clip_g[1:].nbytes + row_bytes * int(switched.sum())
+    for t, step in enumerate(steps):
+        names = [s.name for s in kids[step.serial]]
+        k = int(switched[t].sum())
+        if k:
+            assert names == ["vors.solve", "vors.read.switch_mask", "vors.upload", "vors.precompute"], (t, names)
+            assert kids[step.serial][2].counts == {"lanes": k, "bytes": k * row_bytes, "staged": k * row_bytes}
+        else:
+            assert "vors.upload" not in names and "vors.precompute" not in names, (t, names)
+
+
+def test_staged_clip_over_a_mesh_is_the_pageable_clip(cuda_device):
+    """``batched_track_sequence(mesh=)`` over the card twice hands each
+    thread a lane-sliced host view, which stages its own lanes' depth rows:
+    bit-equal to the clip uploaded first, without a mesh."""
+    from visual_odometry_rs_tpu_torch.parallel import batch
+    from visual_odometry_rs_tpu_torch.parallel import mesh as mesh_mod
+    from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor
+
+    intr, depths, grays = _staged_clip_lanes()
+    config = tracker.TrackerConfig(height=H, width=W, nb_levels=LEVELS, candidate_cap=CAP)
+    state = batch.batched_init_state(config, intr, depths[0], grays[0], device=cuda_device)
+    pageable = batch.batched_track_sequence(config, intr, state, depth_tensor(depths[1:], cuda_device),
+                                            image_tensor(grays[1:], cuda_device))
+    lanes = mesh_mod.make_mesh((2,), ("data",), devices=[cuda_device, cuda_device])
+    spread = batch.batched_track_sequence(config, intr, state, depths[1:], grays[1:], mesh=lanes)
+    _assert_clip_outputs_equal(spread, pageable)
+    assert bool(spread[1][1].switched[:, :2].any()) and bool(spread[1][1].switched[:, 2:].any())
 
 
 # --- the tracker options: Huber weights, brightness, detector, lanes ---------

@@ -21,11 +21,14 @@ frame, and the stacked poses and diagnostics once per clip
 (``outputs_to_numpy``, called by the caller).  On a check frame only the
 switching lanes are precomputed (``precompute_keyframe_counts`` with
 ``lanes`` and ``into``): on a GPU the two precompute kernels read those
-lanes of the frame where they lie and write their keyframes into the
+lanes of the frame's depth on the card and write their keyframes into the
 clip's own copy of the batched keyframe, made at its first switch, which
 replaces the JAX package's one-hot lane moves and its ``switch_subbatch``
-compaction.  Lanes never wait on each other: each lane's solve ends after
-its own iterations.
+compaction.  A clip handed over in host memory sends its images to the
+card before the first frame, and of its depth maps only those rows: each
+check frame's switching lanes cross then as u16 and widen on the card.
+Lanes never wait on each other: each lane's solve ends after its own
+iterations.
 
 With ``reloc_ring`` (a ``RelocRing``: each lane's last R keyframes on the
 device) every frame also runs the lost-frame detector in the finest
@@ -63,7 +66,7 @@ from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
 from ..ops import pyramid as pyramid_ops
 from ..utils import profiling
-from ..utils.types import Float, depth_tensor, image_tensor, resolve_device, upload_clip
+from ..utils.types import Depth, Float, depth_tensor, image_tensor, resolve_device, upload_clip, upload_lanes
 from . import mesh as mesh_mod
 
 
@@ -342,6 +345,16 @@ def batched_track_sequence(
 
     ``mesh`` spreads the lanes over the devices of ``mesh[axis]`` (B a
     multiple of their number); the outputs come back to the state's device.
+
+    Depth maps are u16 or int32 and images u8, on the host or on the
+    state's device.  On a CUDA device, host u16 depth maps and u8 images
+    (numpy arrays or CPU tensors, strided views too, as ``mesh`` hands each
+    device its lanes) take ``upload_clip``'s staged path: the images cross
+    through a page-locked block before the first frame, the depth maps stay
+    on the host, and each check frame sends only the rows of its switching
+    lanes (``upload_lanes``), each in a ``vors.upload`` span of their own
+    between the switch mask's read and the precompute.  The caller's arrays
+    are free again once this returns.  Other inputs go to the device whole.
     """
     if mesh is not None:
         kwargs = dict(switch_cadence=switch_cadence, switch_subbatch=switch_subbatch, frame_offset=frame_offset,
@@ -371,8 +384,12 @@ def batched_track_sequence(
         device = state.current_pose.q.device
         with profiling.span("vors.upload", bytes=depths.nbytes + imgs.nbytes) as upload_span:
             depths, imgs, staged = upload_clip(depths, imgs, device)
-            if staged:
-                upload_span.count(staged=staged)
+            if staged:  # a host clip: its images crossed, its depth maps stay on the host
+                upload_span.count(bytes=staged, staged=staged)
+        # a check frame of a host clip sends its switching lanes' depth rows into ``rows`` (the rows
+        # the precompute reads) through the page-locked ``block``, both made at the first such frame
+        host_depths = depths.device != device
+        rows = block = None
         nb_frames, batch = imgs.shape[:2]
         clip_span.count(lanes=batch, frames=nb_frames)
         if nb_frames == 0 or depths.shape != imgs.shape or state.current_pose.q.shape != (batch, 4):
@@ -417,13 +434,22 @@ def batched_track_sequence(
                     with profiling.span("vors.read.switch_mask"):
                         lanes = torch.nonzero(switch_mask.cpu()).flatten()  # the check frame's host read
                     if lanes.numel() > 0:
+                        depth = depths[t]
+                        if host_depths:
+                            with profiling.span("vors.upload", lanes=lanes.numel()) as upload_span:
+                                if rows is None:
+                                    rows = torch.empty(depths.shape[1:], dtype=Depth, device=device)
+                                    block = torch.empty(depths.shape[1:], dtype=depths.dtype, pin_memory=True)
+                                staged = upload_lanes(depth, lanes, rows, block)
+                                upload_span.count(bytes=staged, staged=staged)
+                            depth = rows
                         with profiling.span("vors.precompute", lanes=lanes.numel()):
                             idx = lanes.to(device)
                             if not own_kf:  # the caller's keyframe is never written
                                 kf = tracker_mod.map_keyframe(_own_copy, kf)
                                 levels = tracker_mod.level_intrinsics(intrinsics, len(pyrs))
                                 own_kf = True
-                            tracker_mod.precompute_keyframe_counts(config, levels, depths[t], pyrs, lanes=idx, into=kf)
+                            tracker_mod.precompute_keyframe_counts(config, levels, depth, pyrs, lanes=idx, into=kf)
                         keyframe_pose = _where_pose(switch_mask, new_current, keyframe_pose)
                         if reloc_on:
                             _ring_write(ring, idx, kf, new_current)

@@ -4,8 +4,11 @@ Every floating point value is f32, like the JAX package
 (``visual_odometry_rs_tpu/utils/types.py``).  Images are u8.  Depth maps are
 u16 on disk; torch's uint16 arithmetic is partial, so the port computes with
 depth as int32.  A single frame (``depth_tensor``) widens on the host before
-it is copied; a clip of the batched driver (``upload_clip``) crosses to a
-CUDA device as u16 through page-locked blocks and widens there.
+it is copied.  A clip of the batched driver (``upload_clip``) sends its
+images to a CUDA device through a page-locked block and keeps its depth
+maps on the host: only the rows a check frame's keyframe precompute reads,
+those of the lanes that switch, cross (``upload_lanes``) as u16 through a
+page-locked block and widen on the card.
 """
 
 from __future__ import annotations
@@ -50,29 +53,60 @@ def image_tensor(img, device) -> torch.Tensor:
 
 
 def upload_clip(depths, imgs, device) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """A clip's u16 depth maps and u8 images (F, B, H, W) → ``(int32 depth,
-    uint8 images, bytes staged)`` on ``device``.
+    """A clip's u16 depth maps and u8 images (F, B, H, W) → ``(depth maps,
+    uint8 images on device, bytes staged)``.
 
     On a CUDA device, host inputs of those dtypes (numpy arrays or CPU
-    tensors, strided views too) cross as they are: each is copied into a
+    tensors, strided views too) split.  The images are copied into a
     page-locked block of torch's caching host allocator, which hands the
-    same blocks out again from clip to clip once their copies have finished;
-    the blocks go to the device with ``non_blocking`` copies on the current
-    stream, and depth widens to int32 there.  The copies into the blocks are
-    synchronous, so the caller may refill its arrays once this returns.
-    Anything else (a CPU device, inputs on a device, other dtypes) goes
-    through ``depth_tensor`` and ``image_tensor`` and stages 0 bytes.
+    same block out again from clip to clip once its copy has finished, and
+    go to the device with a ``non_blocking`` copy on the current stream;
+    that copy into the block is synchronous, so the caller may refill its
+    images once this returns.  The depth maps stay where they are: they come
+    back as a u16 CPU tensor on the caller's memory, for ``upload_lanes`` to
+    send each check frame's switching lanes, and the caller leaves them
+    unchanged while the clip is tracked.  Only the images' bytes are staged.
+    Anything else (a CPU device, inputs on a device, other dtypes, negative
+    strides) goes through ``depth_tensor`` and ``image_tensor``: the whole
+    clip on ``device``, depth as int32, 0 bytes staged.
     """
     device = torch.device(device)
-    srcs = (_host_tensor(depths, torch.uint16), _host_tensor(imgs, Pixel))
-    if device.type != "cuda" or any(src is None for src in srcs):
+    src_d, src_i = _host_tensor(depths, torch.uint16), _host_tensor(imgs, Pixel)
+    if device.type != "cuda" or src_d is None or src_i is None:
         return depth_tensor(depths, device), image_tensor(imgs, device), 0
-    on_device = []
-    for src in srcs:
-        block = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-        block.copy_(src)
-        on_device.append(block.to(device, non_blocking=True))
-    return on_device[0].to(Depth), on_device[1], sum(src.nbytes for src in srcs)
+    block = torch.empty(src_i.shape, dtype=Pixel, pin_memory=True)
+    block.copy_(src_i)
+    return src_d, block.to(device, non_blocking=True), src_i.nbytes
+
+
+def upload_lanes(depth, lanes: torch.Tensor, into: torch.Tensor, block: Optional[torch.Tensor] = None) -> int:
+    """Rows ``lanes`` ((K,) int64 on the CPU) of a host u16 frame ``depth``
+    (B, H, W; a numpy array or CPU tensor, any strides), widened to int32,
+    into the same rows of ``into`` ((B, H, W) int32); the other rows of
+    ``into`` are left as they are.  Returns the bytes staged.
+
+    Into a CUDA tensor the K rows are gathered into the first K rows of
+    ``block`` (page-locked u16, at least K rows of (H, W)), cross with one
+    ``non_blocking`` copy on the current stream and widen on the card; the
+    caller refills ``block`` only after that copy has ended (a host read of
+    the stream waits for it), and K rows of ``depth``'s bytes are staged.
+    Elsewhere the rows are gathered and widened on the host, and 0 bytes are
+    staged.
+    """
+    src = _host_tensor(depth, torch.uint16)
+    if src is None:
+        host = np.asarray(depth)
+        if host.dtype != np.uint16:
+            raise TypeError(f"depth must be u16, got {host.dtype}")
+        src = torch.from_numpy(host.copy())  # negative strides, which torch cannot view
+    if into.device.type != "cuda":
+        into.index_copy_(0, lanes, src.index_select(0, lanes).to(Depth))
+        return 0
+    rows = block[: lanes.numel()]
+    # as int16, the same bits: torch's host copies of uint16 are not vectorized
+    torch.index_select(src.view(torch.int16), 0, lanes, out=rows.view(torch.int16))
+    into.index_copy_(0, lanes.to(into.device), rows.to(into.device, non_blocking=True).to(Depth))
+    return rows.nbytes
 
 
 def _host_tensor(x, dtype) -> Optional[torch.Tensor]:
