@@ -370,15 +370,18 @@ UPLOAD_LAYOUTS = {"contiguous": lambda x: x, "lane_slice": lambda x: x[:, 1:3]} 
 @pytest.mark.parametrize("kind", ["numpy", "tensor"])
 @pytest.mark.parametrize("layout", sorted(UPLOAD_LAYOUTS))
 def test_staged_clip_upload_is_the_pageable_upload(cuda_device, layout, kind):
-    """``upload_clip`` stages a host clip's images through a page-locked
-    block and leaves its depth maps on the host, on the caller's memory;
-    ``upload_lanes`` sends a frame's picked lanes through a page-locked block
-    and widens them on the card.  The u8 images and the int32 rows that
-    cross (every u16 value) equal ``image_tensor``/``depth_tensor``'s
-    pageable upload, no other row is written, and a second clip allocates
-    no page-locked memory.  Inputs on the card, and negative strides, go
-    whole through the pageable converters."""
-    from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor, upload_clip, upload_lanes
+    """``upload_clip`` leaves a host clip's depth maps on the host, on the
+    caller's memory, and stages its images through a page-locked block:
+    frame by frame (``StagedFrames``, nothing staged by the call) for two
+    frames, in the call for one.  ``upload_lanes`` sends a frame's picked
+    lanes through a page-locked block and widens them on the card.  The u8
+    images and the int32 rows that cross (every u16 value) equal
+    ``image_tensor``/``depth_tensor``'s pageable upload, no other row is
+    written, and a second clip allocates no page-locked memory.  Inputs on
+    the card, and negative strides, go whole through the pageable
+    converters."""
+    from visual_odometry_rs_tpu_torch.utils.types import (StagedFrames, depth_tensor, image_tensor, upload_clip,
+                                                        upload_lanes)
 
     rng = np.random.default_rng(13)
     depths = rng.integers(0, 1 << 16, (2, 4, 256, 256), dtype=np.uint16)
@@ -393,10 +396,16 @@ def test_staged_clip_upload_is_the_pageable_upload(cuda_device, layout, kind):
     allocs = []
     for _ in range(2):
         got_d, got_i, staged = upload_clip(depths, imgs, cuda_device)
-        assert staged == imgs.nbytes
+        assert isinstance(got_i, StagedFrames) and staged == 0 and got_i.shape == imgs.shape
         assert (got_d.dtype, got_d.device.type, got_d.data_ptr()) == (torch.uint16, "cpu", address)
-        assert (got_i.dtype, got_i.device.type) == (torch.uint8, "cuda")
-        assert torch.equal(got_i, image_tensor(imgs, cuda_device))
+        with got_i:
+            frames = [got_i[t] for t in range(imgs.shape[0])]
+        assert all((f.dtype, f.device.type) == (torch.uint8, "cuda") for f in frames)
+        assert torch.equal(torch.stack(frames), image_tensor(imgs, cuda_device))
+        one_d, one_i, one_staged = upload_clip(depths[:1], imgs[:1], cuda_device)  # one frame: staged here
+        assert one_staged == imgs[:1].nbytes and one_d.data_ptr() == address
+        assert (one_i.dtype, one_i.device.type) == (torch.uint8, "cuda")
+        assert torch.equal(one_i, image_tensor(imgs[:1], cuda_device))
         block = torch.empty(frame, dtype=torch.uint16, pin_memory=True)
         rows = torch.full(frame, -1, dtype=torch.int32, device=cuda_device)
         every = torch.arange(frame[0] - 1, -1, -1)  # every lane, in reverse
@@ -411,9 +420,10 @@ def test_staged_clip_upload_is_the_pageable_upload(cuda_device, layout, kind):
         torch.cuda.synchronize()
         allocs.append(torch.cuda.host_memory_stats()["num_host_alloc"])
     assert allocs[1] == allocs[0]  # the second clip reused the first one's page-locked blocks
-    on_card = upload_clip(depth_tensor(depths, cuda_device), got_i, cuda_device)  # already there: nothing staged
+    card_i = image_tensor(imgs, cuda_device)
+    on_card = upload_clip(depth_tensor(depths, cuda_device), card_i, cuda_device)  # already there: nothing staged
     assert on_card[2] == 0 and torch.equal(on_card[0], depth_tensor(depths, cuda_device))
-    assert on_card[0].dtype == torch.int32 and torch.equal(on_card[1], got_i)
+    assert on_card[0].dtype == torch.int32 and torch.equal(on_card[1], card_i)
     if kind == "numpy":  # negative strides: the whole clip, pageable
         rev_d, rev_i, rev_staged = upload_clip(depths[::-1], imgs[::-1], cuda_device)
         assert rev_staged == 0 and torch.equal(rev_d, depth_tensor(depths[::-1], cuda_device))
@@ -466,12 +476,17 @@ def _assert_clip_outputs_equal(got, ref):
 @pytest.mark.parametrize("case", sorted(STAGED_CASES))
 def test_staged_clip_tracks_as_the_pageable_clip(cuda_device, case):
     """A lane-sliced host clip through ``batched_track_sequence`` (images
-    staged, each check frame's switching lanes' depth sent then) gives the
-    poses, diagnostics and ring of the same clip uploaded first by the
-    pageable converters, bit for bit.  Its ``vors.upload`` spans stage the
-    images' bytes and one depth row a switched lane-frame, each check frame's
-    between the switch mask's read and the precompute; a check frame with no
-    switch sends nothing; a second clip allocates no page-locked memory."""
+    staged frame by frame on a helper thread, each check frame's switching
+    lanes' depth sent then) gives the poses, diagnostics, final state,
+    keyframes and ring of the same clip uploaded whole first by the pageable
+    converters, bit for bit.  The helper's ``vors.stage`` spans copy each
+    frame once, in order, on a thread of their own; each step's first
+    ``vors.upload`` sends its frame before its solve, and the clip's first
+    one stages nothing.  The ``vors.upload`` spans stage the images' bytes
+    and one depth row a switched lane-frame, each check frame's between the
+    switch mask's read and the precompute; a check frame with no switch
+    sends no depth; ``staged_ahead`` counts 0 to F frames; a second clip
+    allocates no page-locked memory."""
     from visual_odometry_rs_tpu_torch.parallel import batch
     from visual_odometry_rs_tpu_torch.utils import profiling
     from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor
@@ -505,20 +520,28 @@ def test_staged_clip_tracks_as_the_pageable_clip(cuda_device, case):
     kids = {}
     for s in records:
         kids.setdefault(s.parent, []).append(s)
-    clip = kids[None][-1]  # the second clip's root span
+    clip = [s for s in kids[None] if s.name == "vors.clip"][-1]  # the second clip's root span
+    nb_frames, frame_bytes = switched.shape[0], clip_g[1].nbytes
+    assert 0 <= clip.counts["staged_ahead"] <= nb_frames  # a small clip's frame 0 can be staged before step 0
+    stages = [s for s in kids[None] if s.name == "vors.stage" and clip.start_ns <= s.start_ns <= clip.end_ns]
+    assert [(s.id, s.counts) for s in stages] == [(offset + t, {"bytes": frame_bytes}) for t in range(nb_frames)]
+    assert {s.thread for s in stages} != {clip.thread} and len({s.thread for s in stages}) == 1
     first, *steps = kids[clip.serial]
-    assert first.name == "vors.upload" and first.counts == {"bytes": clip_g[1:].nbytes, "staged": clip_g[1:].nbytes}
+    assert first.name == "vors.upload" and first.counts == {"bytes": 0, "staged": 0}
     uploads = [first] + [s for step in steps for s in kids[step.serial] if s.name == "vors.upload"]
     row_bytes = 2 * H * W
     assert sum(s.counts["staged"] for s in uploads) == clip_g[1:].nbytes + row_bytes * int(switched.sum())
     for t, step in enumerate(steps):
         names = [s.name for s in kids[step.serial]]
+        assert kids[step.serial][0].counts == {"bytes": frame_bytes, "staged": frame_bytes}, t
         k = int(switched[t].sum())
         if k:
-            assert names == ["vors.solve", "vors.read.switch_mask", "vors.upload", "vors.precompute"], (t, names)
-            assert kids[step.serial][2].counts == {"lanes": k, "bytes": k * row_bytes, "staged": k * row_bytes}
+            assert names == ["vors.upload", "vors.solve", "vors.read.switch_mask", "vors.upload",
+                             "vors.precompute"], (t, names)
+            assert kids[step.serial][3].counts == {"lanes": k, "bytes": k * row_bytes, "staged": k * row_bytes}
         else:
-            assert "vors.upload" not in names and "vors.precompute" not in names, (t, names)
+            assert names[:2] == ["vors.upload", "vors.solve"] and names.count("vors.upload") == 1, (t, names)
+            assert "vors.precompute" not in names, (t, names)
 
 
 def test_staged_clip_over_a_mesh_is_the_pageable_clip(cuda_device):

@@ -3,15 +3,25 @@ images come back exactly as ``depth_tensor``/``image_tensor`` return them,
 contiguous or lane-sliced as ``parallel/mesh.py::shard_batch`` hands a
 device its lanes, and nothing is staged.  ``upload_lanes`` on the CPU: a
 frame's picked lane rows, widened, land in their rows of the destination
-and no other row is written.  Page-locked staging is CUDA's;
+and no other row is written.  ``FrameStager`` into a CPU tensor: frames
+arrive whole and in order on a helper thread, the caller's array is not
+read once it is closed, the helper's errors reach the caller, and no
+thread outlives it.  Page-locked staging is CUDA's;
 ``tests/test_torch_kernel_cuda.py`` holds it against these paths on the
 card."""
+
+import os
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from visual_odometry_rs_tpu_torch.utils.types import depth_tensor, image_tensor, upload_clip, upload_lanes
+from visual_odometry_rs_tpu_torch.utils import profiling
+from visual_odometry_rs_tpu_torch.utils.types import (FrameStager, depth_tensor, image_tensor, upload_clip,
+                                                    upload_lanes)
 
 EDGES = [0, 1, 32767, 32768, 65535]  # u16 values that an int16 reading would get wrong
 
@@ -79,3 +89,118 @@ def test_upload_lanes_on_the_cpu_writes_the_picked_rows(layout, kind, pick):
 def test_upload_lanes_refuses_other_dtypes():
     with pytest.raises(TypeError):
         upload_lanes(np.zeros((2, 4, 4), np.int32), torch.tensor([0]), torch.zeros((2, 4, 4), dtype=torch.int32))
+
+
+STAGER_CASES = [(layout, kind) for layout in ("contiguous", "lane_slice") for kind in ("numpy", "tensor")]
+
+
+@pytest.mark.parametrize("layout,kind", STAGER_CASES)
+def test_frame_stager_copies_frames_whole_and_in_order(layout, kind):
+    imgs = LAYOUTS[layout](_clip(frames=4)[1])
+    want = imgs.copy()
+    src = torch.from_numpy(imgs) if kind == "tensor" else imgs
+    dest = torch.full(want.shape, 7, dtype=torch.uint8)
+    profiling.clear()
+    try:
+        with profiling.recording(), FrameStager(src, dest, first_id=20) as stager:
+            for t in range(len(want)):
+                stager.wait(t)
+                np.testing.assert_array_equal(dest[t].numpy(), want[t])
+        records = [s for s in profiling.spans() if s.name == "vors.stage"]
+    finally:
+        profiling.clear()
+    assert [(s.id, s.counts) for s in records] == [(20 + t, {"bytes": want[t].nbytes}) for t in range(len(want))]
+    assert all(a.end_ns <= b.start_ns for a, b in zip(records, records[1:]))
+    assert {s.thread for s in records} != {threading.get_native_id()}
+    imgs[...] = 0  # the caller refills its clip once the stager is closed
+    np.testing.assert_array_equal(dest.numpy(), want)
+
+
+def test_frame_stager_raises_the_helpers_error_on_the_callers_thread():
+    imgs = _clip(frames=3)[1]
+    src = [imgs[0], imgs[1, :, :-1], imgs[2]]  # frame 1 does not fit its destination
+    dest = torch.zeros(imgs.shape, dtype=torch.uint8)
+    before = threading.active_count()
+    with FrameStager(src, dest) as stager:
+        stager.wait(0)
+        np.testing.assert_array_equal(dest[0].numpy(), imgs[0])
+        with pytest.raises(ValueError):
+            stager.wait(1)
+    assert threading.active_count() == before
+    assert not dest[2].any()  # the helper stopped at the frame it failed on
+
+
+class _SlowFrames:
+    """A clip whose frames after the first take 200 ms each to read; it
+    records every read."""
+
+    def __init__(self, imgs):
+        self.imgs, self.reads = imgs, []
+
+    def __getitem__(self, t):
+        self.reads.append(t)
+        if t:
+            time.sleep(0.2)
+        return self.imgs[t]
+
+
+def test_frame_stager_leaves_no_thread_when_the_loop_raises():
+    imgs = _clip(frames=6)[1]
+    src, dest = _SlowFrames(imgs), torch.zeros(imgs.shape, dtype=torch.uint8)
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="a step failed"):
+        with FrameStager(src, dest) as stager:
+            stager.wait(0)
+            raise RuntimeError("a step failed")
+    assert threading.active_count() == before
+    assert src.reads in ([0], [0, 1])  # the helper stopped after the frame it was reading
+    np.testing.assert_array_equal(dest[: len(src.reads)].numpy(), imgs[: len(src.reads)])
+    assert not dest[len(src.reads):].any()
+
+
+def test_frame_stager_of_one_frame_starts_no_thread(monkeypatch):
+    started = []
+
+    class Counted(threading.Thread):
+        def start(self):
+            started.append(self.name)
+            super().start()
+
+    monkeypatch.setattr(threading, "Thread", Counted)
+    imgs = _clip(frames=2)[1]
+    dest = torch.zeros(imgs.shape, dtype=torch.uint8)
+    with FrameStager(imgs[:1], dest[:1]) as stager:
+        assert stager.wait(0)  # copied before the stager returned
+    assert started == []
+    with FrameStager(imgs, dest) as stager:
+        stager.wait(1)
+    assert len(started) == 1
+    np.testing.assert_array_equal(dest.numpy(), imgs)
+
+
+def test_frame_stager_stress_under_a_short_switch_interval():
+    """More stagers than cores at once, each read on a thread of its own, the
+    interpreter switching threads every microsecond: every frame is whole
+    when its wait returns, and every thread ends."""
+    imgs = _clip(frames=32, lanes=2, size=8)[1]
+    wrong = []
+
+    def consume(k):
+        dest = torch.zeros(imgs.shape, dtype=torch.uint8)
+        with FrameStager(imgs, dest, first_id=k) as stager:
+            for t in range(len(imgs)):
+                stager.wait(t)
+                if not np.array_equal(dest[t].numpy(), imgs[t]):
+                    wrong.append((k, t))
+
+    threads = [threading.Thread(target=consume, args=(k,)) for k in range((os.cpu_count() or 4) + 2)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads) and wrong == []

@@ -25,8 +25,9 @@ lanes of the frame's depth on the card and write their keyframes into the
 clip's own copy of the batched keyframe, made at its first switch, which
 replaces the JAX package's one-hot lane moves and its ``switch_subbatch``
 compaction.  A clip handed over in host memory sends its images to the
-card before the first frame, and of its depth maps only those rows: each
-check frame's switching lanes cross then as u16 and widen on the card.
+card frame by frame, each frame staged ahead by a helper thread and sent
+when its step starts, and of its depth maps only those rows: each check
+frame's switching lanes cross then as u16 and widen on the card.
 Lanes never wait on each other: each lane's solve ends after its own
 iterations.
 
@@ -53,6 +54,7 @@ counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, NamedTuple
 
 import numpy as np
@@ -66,7 +68,8 @@ from ..models import tracker as tracker_mod
 from ..models.tracker import KeyframeData, TrackerConfig
 from ..ops import pyramid as pyramid_ops
 from ..utils import profiling
-from ..utils.types import Depth, Float, depth_tensor, image_tensor, resolve_device, upload_clip, upload_lanes
+from ..utils.types import (Depth, Float, StagedFrames, depth_tensor, image_tensor, resolve_device, upload_clip,
+                           upload_lanes)
 from . import mesh as mesh_mod
 
 
@@ -349,12 +352,18 @@ def batched_track_sequence(
     Depth maps are u16 or int32 and images u8, on the host or on the
     state's device.  On a CUDA device, host u16 depth maps and u8 images
     (numpy arrays or CPU tensors, strided views too, as ``mesh`` hands each
-    device its lanes) take ``upload_clip``'s staged path: the images cross
-    through a page-locked block before the first frame, the depth maps stay
-    on the host, and each check frame sends only the rows of its switching
-    lanes (``upload_lanes``), each in a ``vors.upload`` span of their own
-    between the switch mask's read and the precompute.  The caller's arrays
-    are free again once this returns.  Other inputs go to the device whole.
+    device its lanes) take ``upload_clip``'s staged path.  The depth maps
+    stay on the host, and each check frame sends only the rows of its
+    switching lanes (``upload_lanes``), in a ``vors.upload`` span of their
+    own between the switch mask's read and the precompute.  The images of a
+    clip of two frames or more are staged frame by frame through a
+    page-locked block by a helper thread of this call (``StagedFrames``,
+    ``vors.stage`` spans on that thread), and step t sends frame t once it
+    is there, in a ``vors.upload`` span before its solve; the ``vors.clip``
+    span counts in ``staged_ahead`` the frames that were there before their
+    step asked.  A single frame crosses through the block before the step.
+    The helper is joined before this returns or raises, and the caller's
+    arrays are free again then.  Other inputs go to the device whole.
     """
     if mesh is not None:
         kwargs = dict(switch_cadence=switch_cadence, switch_subbatch=switch_subbatch, frame_offset=frame_offset,
@@ -369,7 +378,7 @@ def batched_track_sequence(
         device = state.current_pose.q.device
         return tuple(mesh_mod.gather_batch([o[k] for o in outs], device, 1 if k == 1 else 0)
                      for k in range(len(outs[0])))
-    with profiling.span("vors.clip", id=frame_offset) as clip_span:
+    with profiling.span("vors.clip", id=frame_offset) as clip_span, contextlib.ExitStack() as staging:
         reloc_on = reloc_ring is not None
         if reloc_on and config.relocalize_window <= 0:
             raise ValueError("reloc_ring passed but config.relocalize_window is 0; build the config with "
@@ -383,9 +392,11 @@ def batched_track_sequence(
             raise ValueError(f"switch_subbatch must be >= -1, got {switch_subbatch}")
         device = state.current_pose.q.device
         with profiling.span("vors.upload", bytes=depths.nbytes + imgs.nbytes) as upload_span:
-            depths, imgs, staged = upload_clip(depths, imgs, device)
-            if staged:  # a host clip: its images crossed, its depth maps stay on the host
+            depths, imgs, staged = upload_clip(depths, imgs, device, frame_offset)
+            if depths.device != device:  # a host clip: its depth maps stay on the host
                 upload_span.count(bytes=staged, staged=staged)
+        if isinstance(imgs, StagedFrames):  # its frames cross as the steps ask for them
+            staging.enter_context(imgs)  # the helper is joined before the clip returns or raises
         # a check frame of a host clip sends its switching lanes' depth rows into ``rows`` (the rows
         # the precompute reads) through the page-locked ``block``, both made at the first such frame
         host_depths = depths.device != device
@@ -416,9 +427,10 @@ def batched_track_sequence(
         results, switches, recoveries = [], [], []
         for t in range(nb_frames):
             with profiling.span("vors.step", id=frame_offset + t):
+                img = imgs[t]
                 with profiling.span("vors.solve"):
                     init_model = tracker_mod.warm_start_init(config, keyframe_pose, current, prev)
-                    pyrs = pyramid_ops.mean_pyramid(config.nb_levels, imgs[t])
+                    pyrs = pyramid_ops.mean_pyramid(config.nb_levels, img)
                     result = tracker_mod.track_frame(config, kf, pyrs, init_model, detector=reloc_on)
                 new_current = _where_pose(result.failed, current, _solved_pose(keyframe_pose, result.model))
                 switch_now = result.flow >= config.flow_threshold  # False for a NaN flow
@@ -469,6 +481,8 @@ def batched_track_sequence(
                 results.append(result)
                 switches.append(switched)
                 recoveries.append(relocalized)
+        if isinstance(imgs, StagedFrames):
+            clip_span.count(staged_ahead=imgs.staged_ahead)
 
         diags = StepDiagnostics(
             flow=torch.stack([r.flow for r in results]),
